@@ -18,7 +18,19 @@ drives the port's main path on the card:
   5. timings: the kernel per call (CUDA events) and its device time
      (``torch.profiler``) beside its bound and its plain version; the
      stream's ticks per second, and a profiled window of it (kernels and
-     device busy time per tick).
+     device busy time per tick);
+  6. the ``entropy_scores`` kernel against its plain version at the
+     learner's widths, odd shapes, the LM vocab and the learning path's
+     shapes, in float32 and bfloat16, with H in [0, log V];
+  7. the hybrid-learning loop (``run_learning("hybrid_small")``) at 64
+     replications x 10 rounds x 60 fit steps, on the workload's own
+     dataset and on an MNIST-sized one, twice each, bit for bit, with one
+     entropy launch per round and the curve invariants; its first 8
+     replications against a CPU run of the port on the same draws; then
+     the timings of phases 6-7: the entropy kernel per call and on the
+     device beside its bound, its plain version and
+     ``Categorical.entropy``, replications per second, and a profiled
+     round (kernels per round, device idle share).
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -26,6 +38,7 @@ torch, numpy and the port (``src/repro_torch``), and needs no network.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -105,6 +118,18 @@ def estep_bound_ms(B, R, C, T, V):
                                        else "operations"), nbytes
 
 
+def entropy_bound_ms(N, V, elt):
+    """Least time for the entropy of N rows of V logits on an H100 SXM: the
+    logits read once and the N float32 entropies written once at the memory
+    rate, or its ~5 float32 operations per logit (subtract, exp, add,
+    fused multiply-add, max) at the float32 rate, whichever is larger."""
+    nbytes = N * V * elt + 4 * N
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 5 * N * V / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
 def make_estep_inputs(gen, B, W, C, T, V, dev):
     R = W * C + 1
     shape_r = (R, C) if B is None else (B, R, C)
@@ -126,8 +151,15 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.ds_estep import ds_estep, smem_budget
     from repro_torch.kernels.ref import ds_estep_ref
+    from repro_torch.core import simfast
+    from repro_torch.data.datasets import mnist_like, train_test_split
+    from repro_torch.kernels.ref import entropy_ref
+    from repro_torch.kernels.uncertainty import entropy_scores
     from repro_torch.labelstream import aggregate, router
-    from repro_torch.scenarios import get_stream_config
+    from repro_torch.learning import linear
+    from repro_torch.scenarios import (
+        get_fast_config, get_stream_config, run_learning, spec_dataset,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -404,7 +436,264 @@ def main():
     else:
         say("[profile] stream: device time not measured (no device events)")
 
+    # ---- phase 6: the entropy kernel against its plain version ----------
+    # tolerances are the reference tests': learner widths and the LM vocab
+    # as tests/test_kernels.py (atol max(tol, 1e-4) * 10, rtol 1e-2, tol
+    # 2e-5 in float32 and 2e-2 in bfloat16), the odd shapes as
+    # tests/test_learning.py (1e-4 in float32, 2e-2 in bfloat16), the
+    # learning path's shapes at float32's 1e-4 (tests/test_learning.py:83)
+    f32, bf16 = torch.float32, torch.bfloat16
+    wide_tol = lambda dt: ((2e-1 if dt == bf16 else 1e-3), 1e-2)
+    odd_tol = lambda dt: ((2e-2, 2e-2) if dt == bf16 else (1e-4, 1e-4))
+    ent_cases = []
+    for dt in (f32, bf16):
+        dn = "f32" if dt == f32 else "bf16"
+        ent_cases += [(f"learner {N}x{C} {dn}", N, C, dt, *wide_tol(dt))
+                      for N, C in ((256, 2), (384, 10), (512, 64), (777, 17),
+                                   (1024, 48))]
+        ent_cases += [(f"odd {N}x{V} {dn}", N, V, dt, *odd_tol(dt))
+                      for N, V in ((1, 3), (33, 777), (129, 513))]
+        ent_cases += [(f"vocab {N}x50304 {dn}", N, 50304, dt, *wide_tol(dt))
+                      for N in (64, 512)]
+    LEARN_SHAPES = {"learn-mnist": (64 * 3000, 10),
+                    "learn-hybrid": (64 * 1500, 2)}
+    ent_cases += [(label, N, V, f32, 1e-4, 1e-4)
+                  for label, (N, V) in LEARN_SHAPES.items()]
+    ent_inputs, ent_errs = {}, {}
+    for label, N, V, dt, atol, rtol in ent_cases:
+        x = (torch.randn((N, V), generator=gen, device=dev) * 3).to(dt)
+        h = entropy_scores(x)
+        torch.cuda.synchronize()
+        want = entropy_ref(x)
+        err = (h - want).abs().max().item()
+        lo, hi = h.min().item(), h.max().item()
+        ok = (bool(torch.isfinite(h).all()) and tuple(h.shape) == (N,)
+              and bool(torch.allclose(h, want, atol=atol, rtol=rtol))
+              and lo >= 0.0 and hi <= math.log(V) + 1e-3)
+        say(f"[entropy] {label}: max|dH|={err:.3g} (atol {atol}, rtol "
+            f"{rtol}), H in [{lo:.4g}, {hi:.4g}], log V={math.log(V):.4g}")
+        check(ok, f"entropy kernel disagrees with its plain version at "
+              f"{label}")
+        ent_inputs[label] = x
+        ent_errs[label] = err
+    # a base address off the 16-byte grid, and leading dims
+    buf = torch.randn((4 * 33 * 777 + 1,), generator=gen, device=dev) * 3
+    x = buf[1:].view(4, 33, 777)
+    h = entropy_scores(x)
+    err = (h - entropy_ref(x)).abs().max().item()
+    say(f"[entropy] unaligned base, (4, 33, 777) f32: max|dH|={err:.3g} "
+        "(tol 1e-4)")
+    check(tuple(h.shape) == (4, 33) and err <= 1e-4,
+          "entropy kernel is wrong on an unaligned base")
+
+    # ---- phase 7: the hybrid-learning loop ------------------------------
+    # run_learning("hybrid_small") at its spec-built dataset and at the
+    # paper's MNIST-sized problem (mnist_like(4000, seed=4) split 3:1),
+    # 64 replications x 10 rounds x 60 fit steps, twice each
+    R7, ROUNDS, FIT = 64, 10, 60
+    learn_kw = dict(n_reps=R7, rounds=ROUNDS, fit_steps=FIT)
+    Xm, ym = mnist_like(4000, seed=4)
+    sizes = {"hybrid_small": spec_dataset("hybrid_small"),
+             "mnist_like": train_test_split(Xm, ym, test_frac=0.25, seed=4)}
+    learn, learn_launches = {}, {}
+    round_fn = simfast._learner_round
+    for label, data in sizes.items():
+        rounds_seen = []
+
+        def recording_round(*a, **k):
+            out = round_fn(*a, **k)
+            labeled_in = a[12]
+            aux = out[5]
+            rounds_seen.append((labeled_in.cpu(), aux["chosen"].cpu(),
+                                aux["take"].cpu(), aux["n_ticks"].cpu()))
+            return out
+        # the checked run: counts from 0, every round's picks recorded
+        simfast._learner_round = recording_round
+        try:
+            entropy_scores.launches = 0
+            r1 = run_learning("hybrid_small", *data, device="cuda",
+                              **learn_kw)
+            torch.cuda.synchronize()
+            n_launch = entropy_scores.launches
+        finally:
+            simfast._learner_round = round_fn
+        learn_launches[label] = n_launch
+        check(n_launch == ROUNDS, f"learning ({label}) made {n_launch} "
+              f"entropy launches, expected {ROUNDS}")
+        # the timed run, unrecorded
+        entropy_scores.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r2 = run_learning("hybrid_small", *data, device="cuda", **learn_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(entropy_scores.launches == ROUNDS,
+              f"learning ({label}) second run made "
+              f"{entropy_scores.launches} entropy launches")
+        a1 = {**r1["curve"], **{k: r1["raw"][k] for k in
+                               ("W", "b", "labeled", "y_obs", "total_time")}}
+        a2 = {**r2["curve"], **{k: r2["raw"][k] for k in
+                               ("W", "b", "labeled", "y_obs", "total_time")}}
+        diff = [k for k in a1 if not torch.equal(a1[k], a2[k])]
+        check(not diff, f"learning ({label}) is not bitwise repeatable on "
+              f"the card: {diff}")
+        t = a1["t"].cpu().numpy()
+        nl = a1["n_labeled"].cpu().numpy()
+        acc = a1["acc"].cpu().numpy()
+        check(t.shape == nl.shape == acc.shape == (R7, ROUNDS + 1)
+              and np.isfinite(acc).all() and np.isfinite(t).all(),
+              f"learning ({label}) curve shapes or values are wrong")
+        check(bool((np.diff(t, axis=1) > 0).all()),
+              f"learning ({label}): time does not strictly increase")
+        check(bool((np.diff(nl, axis=1) > 0).all()),
+              f"learning ({label}): n_labeled does not grow every round")
+        check(len(rounds_seen) == ROUNDS, "round recorder missed rounds")
+        ticks = torch.stack([r[3] for r in rounds_seen], 1)
+        for lab_in, chosen, take, _ in rounds_seen:
+            again = torch.gather(lab_in, 1, chosen)[take]
+            check(not bool(again.any()), f"learning ({label}): a labeled "
+                  "point was chosen again")
+            for i in range(R7):
+                picks = chosen[i][take[i]]
+                check(picks.unique().numel() == picks.numel(),
+                      f"learning ({label}): a point chosen twice in a round")
+        fin = acc[:, -1]
+        learn[label] = dict(wall=wall, reps_per_s=R7 / wall, acc=fin,
+                            n_labeled=nl[:, -1], data=data, curve=a1,
+                            ticks=ticks)
+        say(f"[learn] {label} (X {tuple(data[0].shape)}, "
+            f"{int(data[1].max()) + 1} classes): {R7} reps x {ROUNDS} "
+            f"rounds x {FIT} fit steps in {wall:.3f} s "
+            f"({R7 / wall:.2f} replications/s, second run); final accuracy "
+            f"{fin.mean():.4f} +- {fin.std():.4f}, labels "
+            f"{nl[:, -1].min()}..{nl[:, -1].max()}, sim time "
+            f"{t[:, -1].mean():.0f} s; crowd batch ticks per round "
+            f"{ticks.float().mean():.1f} mean, lock-step (max over "
+            f"replications) {ticks.max(0).values.float().mean():.1f}; "
+            f"entropy launches {n_launch} (= "
+            f"rounds); second run bit-equal; no point chosen twice; {card}")
+    check(float(learn["hybrid_small"]["acc"].mean()) > 0.8,
+          "hybrid_small final accuracy is not above 0.8")
+
+    # the first 8 replications of hybrid_small against the port on the
+    # CPU, with the same draws: the draws the entry point makes, made
+    # ahead and cut to 8 replications
+    cfg7 = get_fast_config("hybrid_small")
+    X7, y7 = sizes["hybrid_small"][:2]
+    bcfg = dataclasses.replace(cfg7, n_tasks=cfg7.pool_size,
+                               batch_size=cfg7.pool_size,
+                               n_classes=int(y7.max()) + 1)
+    rng7 = np.random.default_rng(0)
+    gen7 = torch.Generator(device=dev)
+    gen7.manual_seed(0)
+    n8 = 8
+    draws = [simfast.draw_round(bcfg, R7, X7.shape[0], rng7, gen7)
+             for _ in range(ROUNDS)]
+    cut = lambda d: dict(u=d["u"][:n8].cpu(),
+                         ws={k: v[:n8] for k, v in d["ws"].items()},
+                         banks={k: v[:n8] for k, v in d["banks"].items()},
+                         seed=d["seed"][:n8])
+    draws8 = [cut(d) for d in draws]
+    kw8 = dict(learn_kw, n_reps=n8, draws=draws8)
+    g8 = run_learning("hybrid_small", *sizes["hybrid_small"], device="cuda",
+                      **kw8)["curve"]
+    c8 = run_learning("hybrid_small", *sizes["hybrid_small"], device="cpu",
+                      **kw8)["curve"]
+    main8 = {k: v[:n8] for k, v in learn["hybrid_small"]["curve"].items()}
+    check(torch.equal(g8["n_labeled"], main8["n_labeled"]),
+          "the injected card run does not reproduce the main run's labels")
+    check(torch.equal(g8["n_labeled"].cpu(), c8["n_labeled"]),
+          "hybrid_small: card and CPU n_labeled differ")
+    ga, ca = g8["acc"][:, -1].cpu().numpy(), c8["acc"][:, -1].numpy()
+    gap = abs(float(ga.mean()) - float(ca.mean()))
+    check(gap <= max(float(ca.std()), 1e-6),
+          f"hybrid_small: card and CPU final accuracy differ by {gap}")
+    same_t = torch.equal(g8["t"].cpu(), c8["t"])
+    same_main = torch.equal(g8["acc"], main8["acc"])
+    say(f"[learn] hybrid_small first {n8} reps, card vs CPU on the same "
+        f"draws: n_labeled equal; final accuracy {ga.mean():.4f} vs "
+        f"{ca.mean():.4f} (gap {gap:.4g}, CPU std {ca.std():.4f}); max "
+        f"|dacc| over the curve "
+        f"{(g8['acc'].cpu() - c8['acc']).abs().max().item():.4g}; sim time "
+        f"{'bit-equal' if same_t else 'differs'} (max |dt| "
+        f"{(g8['t'].cpu() - c8['t']).abs().max().item():.4g} s); injected "
+        f"card run = main run's first {n8} in n_labeled, acc "
+        f"{'bit-equal' if same_main else 'differs'}")
+
+    # ---- timings of phases 6-7 ------------------------------------------
+    ent_t = {}
+    for label, N, V, dt, _, _ in ent_cases:
+        x = ent_inputs[label]
+        reps = 20 if N * V > 10 ** 7 else 100
+        ms = cuda_ms(lambda: entropy_scores(x), reps)
+        plain = cuda_ms(lambda: entropy_ref(x), reps)
+        lib = cuda_ms(lambda: torch.distributions.Categorical(
+            logits=x, validate_args=False).entropy(), reps)
+
+        def many():
+            for _ in range(reps):
+                entropy_scores(x)
+
+        def many_plain():
+            for _ in range(reps):
+                entropy_ref(x)
+        _, _, _, by_name = device_profile(many)
+        dev_us = sum(v for k, v in by_name.items() if "entropy" in k) / reps
+        _, _, plain_busy, _ = device_profile(many_plain)
+        elt = 2 if dt == bf16 else 4
+        bound, by, nbytes = entropy_bound_ms(N, V, elt)
+        ent_t[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                            bound_ms=bound, bound_by=by, dev_us=dev_us)
+        dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}"
+                   f"% of bound)" if dev_us > 0 else "device time not "
+                   "measured (no device events in the profile)")
+        say(f"[time] entropy {label} (N={N}, V={V}): per call "
+            f"{ms * 1e3:.2f} us, {dev_txt}, plain per call "
+            f"{plain * 1e3:.2f} us (device {plain_busy / reps:.2f} us), "
+            f"Categorical.entropy per call "
+            f"{lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}, "
+            f"{nbytes} B); {card}")
+    for label, res in learn.items():
+        say(f"[time] learning {label}: {res['reps_per_s']:.2f} replications/s "
+            f"({R7} reps x {ROUNDS} rounds in {res['wall']:.3f} s wall, "
+            f"{res['wall'] / ROUNDS * 1e3:.1f} ms per round); {card}")
+        # where a round's time goes: two rounds under the profiler
+        wall, n_k, busy, by_name = device_profile(
+            lambda: run_learning("hybrid_small", *res["data"], device="cuda",
+                                 **dict(learn_kw, rounds=2)))
+        if n_k:
+            per = res["wall"] / ROUNDS * 1e6
+            say(f"[profile] learning {label}, 2 rounds: {n_k / 2:.0f} kernels "
+                f"per round, device busy {busy / 2:.0f} us per round; wall "
+                f"per round {wall / 2 * 1e6:.0f} us with the profiler on, "
+                f"{per:.0f} us without: device idle "
+                f"{(1 - busy / 2 / per) * 100:.1f}% of the unprofiled round; "
+                f"{card}")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            for name, us in top:
+                say(f"[profile]   {us / 2:9.1f} us/round  {name[:90]}")
+            # the fit's share: one 60-step refit of all replications
+            Xd = torch.as_tensor(res["data"][0], device=dev)
+            yd = torch.as_tensor(res["data"][1], device=dev)
+            C7 = int(yd.max()) + 1
+            sw = (torch.rand((R7, Xd.shape[0]), generator=gen, device=dev)
+                  < 0.03).to(torch.float32)
+            st0 = linear.init(Xd.shape[1], C7, lead=(R7,), device=dev)
+            fwall, f_k, f_busy, _ = device_profile(
+                lambda: linear.fit(st0, Xd, yd.expand(R7, -1), sw,
+                                   steps=FIT))
+            say(f"[profile] learning {label}: one {FIT}-step fit of {R7} "
+                f"replications: {f_k} kernels ({f_k / FIT:.1f} per step), "
+                f"device busy {f_busy:.0f} us, wall {fwall * 1e6:.0f} us "
+                f"with the profiler on; the crowd batch's lock-step ticks "
+                f"per round {res['ticks'].max(0).values.float().mean():.1f}"
+                f"; {card}")
+        else:
+            say(f"[profile] learning {label}: device time not measured (no "
+                "device events)")
+
     t_main = timings["refresh"]
+    e_main = ent_t["learn-hybrid"]
     say(json.dumps({"kernels": [{
         "name": "ds_estep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ds_estep.cu",
@@ -413,7 +702,15 @@ def main():
         "max_abs_err": errs["refresh"],
         "ms": t_main["ms"], "plain_ms": t_main["plain_ms"],
         "bound_ms": t_main["bound_ms"], "bound_by": t_main["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "entropy_scores", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/entropy.cu",
+        "replaces": "src/repro/kernels/uncertainty.py:55",
+        "launches": learn_launches["hybrid_small"],
+        "max_abs_err": ent_errs["learn-hybrid"],
+        "ms": e_main["ms"], "plain_ms": e_main["plain_ms"],
+        "bound_ms": e_main["bound_ms"], "bound_by": e_main["bound_by"],
+        "library_ms": e_main["library_ms"]}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -1,17 +1,34 @@
-"""Stream-tick primitives of the vectorized crowd simulator.
+"""Vectorized Monte-Carlo crowd simulator (the ``simfast`` engine).
 
-Port of the parts of ``src/repro/core/simfast.py`` that the streaming
-router runs: the static :class:`FastConfig`, the counter-based
-``lowbias32`` randomness, the latency and exponential draws, the two-tier
-``priority_match``, worker-pool init from pre-drawn banks, TermEst and
-``churn_and_maintain``. Every function works on tensors with any number of
-leading batch dimensions (replications x shards) in front of the pool or
-window axis.
+Port of ``src/repro/core/simfast.py``: the static :class:`FastConfig`, the
+counter-based ``lowbias32`` randomness, the latency and exponential draws,
+the two-tier ``priority_match``, worker-pool init from pre-drawn banks,
+TermEst and ``churn_and_maintain`` (shared with the streaming router); the
+batch engine (``_tick``, ``_run_batch``, ``_simulate_one``, ``simulate``);
+and the hybrid-learning loop on it (``_learner_round``,
+``simulate_learning_batch``, ``simulate_learning``). Every function works on
+tensors with leading batch dimensions (replications, or replications x
+shards) in front of the pool or task axis: the reference's ``vmap`` over
+replications is that leading dim, its ``lax.scan`` over batches and rounds
+a Python loop.
+
+The reference's batched ``while_loop`` over event ticks keeps stepping
+every replication until the last one stops, and freezes a replication
+whose condition went false by selecting its old carry. ``_run_batch`` does
+the same: it computes ``alive`` per replication each step, keeps the old
+value of every carry leaf where it is false, and reads ``alive.any()`` on
+the host only every ``_ALIVE_EVERY`` steps (the extra masked steps are
+no-ops).
 
 The hash is computed in int64 masked to 32 bits: torch has no usable
 ``uint32`` shifts or products on the CPU, and every product here is split
 into 16-bit halves so it stays exact in int64 without relying on signed
 overflow (which CUDA does not define).
+
+Not ported yet: the batch engine's ``trace`` counters, ``PopTraced`` /
+``SimScales`` sweeps (``simulate_swept``, ``simulate_swept_pop``) and the
+multi-device (pmap) path; :func:`_check_batch_config` raises for the
+trace counters and traced overrides.
 """
 from __future__ import annotations
 
@@ -21,6 +38,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core.crowd import (
+    SWITCH_DELAY_S, WAIT_PAY_PER_S, WORK_PAY_PER_RECORD,
+)
+from repro_torch.device import resolve_device
+from repro_torch.labelstream.aggregate import _add_at
+from repro_torch.learning import linear, select as lsel
 
 INF = float("inf")
 MASK32 = 0xFFFFFFFF
@@ -62,6 +86,22 @@ class FastConfig:
     bank: int = 16
     # the batch engine's trace counters are not ported; must stay None
     trace: Optional[object] = None
+
+    @property
+    def eff_batch(self) -> int:
+        if self.batch_size is not None:
+            return max(1, int(self.batch_size))
+        return max(1, int(round(self.pool_size / self.batch_ratio)))
+
+    @property
+    def n_batches(self) -> int:
+        return -(-self.n_tasks // self.eff_batch)
+
+    @property
+    def batch_steps(self) -> int:
+        # tick budget: worst case is one completion per worker per tick
+        # during backlog draining plus fine-grained mitigation-phase ticks
+        return int(math.ceil(self.max_batch_time / self.dt))
 
 
 # --------------------------------------------------------------------------
@@ -282,3 +322,478 @@ def churn_and_maintain(cfg: FastConfig, ws, banks, t, u_delay, u_sess,
     ws = _replace_slots(cfg, ws, banks, leave, t, u_delay, u_sess,
                         recruit_mean, session_mean)
     return ws, leave
+
+
+# --------------------------------------------------------------------------
+# the batch engine: one tick over the current batch
+# --------------------------------------------------------------------------
+
+# how often (in steps) _run_batch asks the host whether any replication is
+# still running; each ask waits for the device
+_ALIVE_EVERY = 8
+
+
+def _check_batch_config(cfg: FastConfig, pop=None):
+    if cfg.trace is not None:
+        raise NotImplementedError("the batch engine's trace counters are "
+                                  "not ported yet (FastConfig.trace)")
+    if pop is not None:
+        raise NotImplementedError("traced population overrides (PopTraced, "
+                                  "simulate_swept*) are not ported yet")
+
+
+def _tick(cfg: FastConfig, ws, ts, banks, true_label, t0, t, seed, step: int):
+    """Process all events at/before time ``t`` and make new assignments,
+    for every replication at once: ``ws`` holds ``(R, P)`` worker state,
+    ``ts`` ``(R, B[, C])`` task state, ``true_label`` ``(R, B)``, ``t0``,
+    ``t`` and ``seed`` are ``(R,)``; ``step`` is the host tick index.
+    Returns ``(ws, ts, t_next)``, op for op the reference's float32
+    arithmetic."""
+    P, B, C = cfg.pool_size, cfg.eff_batch, cfg.n_classes
+    R = t.shape[0]
+    dev = t.device
+    up = _uniform_block(seed, step, 8 * P).reshape(R, 8, P)
+    tc = t[:, None]
+    ws = dict(ws)
+    active = ws["assigned"] >= 0
+
+    # ---- completions: P-update scatters into a padded (B+1)-row table
+    # (row B is the discard row for idle workers)
+    comp = active & (ws["busy_until"] <= tc)
+    tid = torch.where(comp, ws["assigned"], B)
+    lat = torch.where(comp, ws["busy_until"] - ws["start_t"], 0.0)
+    a_idx = torch.clamp(ws["assigned"], min=0)
+    tl_w = torch.where(comp, torch.gather(true_label, 1, a_idx), 0)
+    correct = up[:, 0] < ws["acc"]
+    wrong = torch.floor(up[:, 1] * max(C - 1, 1)).to(torch.int64)
+    label = torch.where(correct, tl_w,
+                        torch.where(wrong >= tl_w, wrong + 1, wrong))
+    votes = torch.cat([ts["votes"],
+                       torch.zeros((R, 1, C), dtype=torch.float32,
+                                   device=dev)], 1).reshape(R, (B + 1) * C)
+    votes = _add_at(votes, tid * C + label,
+                    comp.to(torch.float32)).reshape(R, B + 1, C)[:, :B]
+
+    # ---- task completion (majority-vote QC)
+    win_lat = torch.zeros((R, B + 1), device=dev).scatter_reduce_(
+        1, tid, lat, "amax")[:, :B]
+    win_t = torch.full((R, B + 1), INF, device=dev).scatter_reduce_(
+        1, tid, torch.where(comp, ws["busy_until"], INF), "amin")[:, :B]
+    win_t = torch.where(torch.isfinite(win_t), win_t, 0.0)
+    nv = votes.sum(-1)
+    newly = ~ts["done"] & (nv >= cfg.votes_needed)
+    done = ts["done"] | newly
+    ts = dict(votes=votes, done=done,
+              completed=torch.where(newly, win_t, ts["completed"]),
+              last_lat=torch.where(newly, win_lat, ts["last_lat"]))
+
+    # ---- straggler losers of a newly done task, merged worker writes
+    lose = active & ~comp & torch.gather(done, 1, a_idx)
+    winner = torch.where(lose, torch.gather(ts["last_lat"], 1, a_idx), 0.0)
+    freed = comp | lose
+    ws["n_completed"] = ws["n_completed"] + comp
+    ws["n_terminated"] = ws["n_terminated"] + lose
+    ws["comp_sum"] = ws["comp_sum"] + lat * comp
+    ws["comp_sqsum"] = ws["comp_sqsum"] + lat * lat * comp
+    ws["term_sum"] = ws["term_sum"] + winner * lose
+    ws["cost_work"] = ws["cost_work"] + (
+        freed.sum(-1) * cfg.n_records * WORK_PAY_PER_RECORD)
+    # blocked_until doubles as "available since": completers free at their
+    # exact completion instant, losers at the winning vote + switch delay
+    ws["blocked_until"] = torch.where(
+        comp, ws["busy_until"],
+        torch.where(lose, torch.gather(ts["completed"], 1, a_idx)
+                    + SWITCH_DELAY_S, ws["blocked_until"]))
+    ws["assigned"] = torch.where(freed, -1, ws["assigned"])
+    ws["busy_until"] = torch.where(freed, INF, ws["busy_until"])
+
+    # ---- churn + pool maintenance (single backfill update)
+    rm = cfg.recruit_mean_s if cfg.retainer else cfg.cold_recruit_mean_s
+    ws, _ = churn_and_maintain(cfg, ws, banks, tc, up[:, 2], up[:, 3], rm)
+
+    # ---- assignment (priority routing + straggler duplication)
+    avail = (ws["assigned"] < 0) & (ws["blocked_until"] <= tc) \
+        & (ws["session_end"] > tc)
+    n_active = torch.zeros((R, B + 1), dtype=torch.int64, device=dev
+                           ).scatter_add_(
+        1, torch.where(ws["assigned"] >= 0, ws["assigned"], B),
+        torch.ones_like(ws["assigned"]))[:, :B]
+    open_t = ~done
+    unass = open_t & (n_active == 0)
+    if cfg.straggler:
+        missing = cfg.votes_needed - nv
+        mitig = open_t & (n_active >= 1) & (n_active < missing + 1) \
+            & (n_active <= cfg.max_dup)
+    else:
+        mitig = torch.zeros_like(open_t)
+    shift = (_uniform_block(seed ^ 0xA5A5A5A5, step, 1)[:, 0] * B
+             ).to(torch.int64)
+    take, task_for_w, took_unass, n_un = priority_match(
+        avail, unass, mitig, shift)
+    # a worker drawing from the unassigned queue starts at its exact free
+    # moment; a mitigation duplicate only starts once the tick observes it
+    start = torch.where(took_unass,
+                        torch.maximum(ws["blocked_until"], t0[:, None]), tc)
+    lat_new = draw_latency(cfg, ws["mu"], ws["sigma"], up[:, 6], up[:, 7]) \
+        * max(1, cfg.n_records) ** 0.9
+    ws["assigned"] = torch.where(take, task_for_w, ws["assigned"])
+    ws["busy_until"] = torch.where(take, start + lat_new, ws["busy_until"])
+    ws["start_t"] = torch.where(take, start, ws["start_t"])
+    ws["n_started"] = ws["n_started"] + take
+
+    # ---- event jump: hop to the next completion/arrival/session end
+    busy_min = ws["busy_until"].amin(-1)
+    arr_min = torch.where(ws["blocked_until"] > tc, ws["blocked_until"],
+                          INF).amin(-1)
+    sess_min = torch.where(ws["assigned"] < 0, ws["session_end"],
+                           INF).amin(-1)
+    next_evt = torch.minimum(torch.minimum(busy_min, arr_min), sess_min)
+    more_unass = n_un > took_unass.sum(-1)
+    dt_eff = torch.where(more_unass, cfg.bundle_s, cfg.mitig_bundle_s)
+    t_next = torch.where(busy_min <= t, t,
+                         torch.maximum(t + dt_eff, next_evt))
+    # pay idle live workers for the upcoming quiet interval [t, t_next)
+    waiting = avail & ~take
+    ws["cost_wait"] = ws["cost_wait"] + \
+        waiting.sum(-1) * (t_next - t) * WAIT_PAY_PER_S
+    return ws, ts, t_next
+
+
+def _run_batch(cfg: FastConfig, ws, banks, t0, seed, true_labels, valid):
+    """Label one batch to completion in every replication: the reference's
+    event-jumping ``while_loop`` under ``vmap``. A replication whose
+    condition (open tasks, step budget, time budget) is false keeps its
+    carry; the loop ends when none is left. Returns ``(ws, ts, t_end,
+    steps)`` with ``steps`` the ``(R,)`` tick counts."""
+    R, B = t0.shape[0], cfg.eff_batch
+    dev = t0.device
+    ts = dict(
+        votes=torch.zeros((R, B, cfg.n_classes), device=dev),
+        done=~valid,                       # padding rows are born done
+        completed=torch.zeros((R, B), device=dev),
+        last_lat=torch.zeros((R, B), device=dev))
+    steps = torch.zeros((R,), dtype=torch.int64, device=dev)
+    t = t0 + cfg.dt
+    t_max = t0 + cfg.max_batch_time
+    for i in range(cfg.batch_steps):
+        # every replication still running has made exactly i steps, so the
+        # host index i is its own step counter
+        alive = ~ts["done"].all(-1) & (t <= t_max)
+        if i % _ALIVE_EVERY == 0 and not bool(alive.any()):
+            break
+        ws_n, ts_n, t_n = _tick(cfg, ws, ts, banks, true_labels, t0, t,
+                                seed, i)
+        a1 = alive[:, None]
+        ws = {k: torch.where(alive if v.dim() == 1 else a1, v, ws[k])
+              for k, v in ws_n.items()}
+        ts = {k: torch.where(alive.reshape((R,) + (1,) * (v.dim() - 1)),
+                             v, ts[k]) for k, v in ts_n.items()}
+        t = torch.where(alive, t_n, t)
+        steps = steps + alive
+    t_end = torch.maximum(ts["completed"].amax(-1), t0)
+    # a batch that hit its time/step budget can leave workers mid-task;
+    # terminate those assignments so they cannot vote into the next batch
+    still = ws["assigned"] >= 0
+    ws["assigned"] = torch.where(still, -1, ws["assigned"])
+    ws["busy_until"] = torch.where(still, INF, ws["busy_until"])
+    return ws, ts, t_end, steps
+
+
+def _simulate_one(cfg: FastConfig, ws, banks, seed, true_labels, pop=None):
+    """All replications of one labeling run: the batches in order, each
+    labeled to completion by :func:`_run_batch`. ``ws``/``banks`` are the
+    initial pool state on the device, ``seed`` the ``(R,)`` uint32 counter
+    seeds (int64), ``true_labels`` ``(n_tasks,)`` or ``(R, n_tasks)``.
+    Returns the reference's outputs with leading dim R, plus ``n_ticks``
+    ``(R, n_batches)``."""
+    _check_batch_config(cfg, pop)
+    R = seed.shape[0]
+    dev = seed.device
+    B, T, nb = cfg.eff_batch, cfg.n_tasks, cfg.n_batches
+    pad = nb * B - T
+    labels = torch.as_tensor(true_labels, device=dev).to(torch.int64)
+    labels = labels.expand(R, T) if labels.dim() == 1 else labels
+    labels = torch.cat([labels, torch.zeros((R, pad), dtype=torch.int64,
+                                            device=dev)], 1).reshape(R, nb, B)
+    valid = torch.cat([torch.ones((T,), dtype=torch.bool, device=dev),
+                       torch.zeros((pad,), dtype=torch.bool, device=dev)]
+                      ).reshape(nb, B)
+    t = torch.zeros((R,), device=dev)
+    outs = []
+    for i in range(nb):
+        mix = ((i + 1) * 0x9E3779B9) & MASK32
+        seed_b = _lowbias32(seed ^ mix)
+        val = valid[i].expand(R, B)
+        ws, ts, t_end, steps = _run_batch(cfg, ws, banks, t, seed_b,
+                                          labels[:, i], val)
+        fin = ts["done"] & val
+        outs.append(dict(latency=torch.where(fin, ts["completed"] - t[:, None],
+                                             0.0),
+                         done=fin, result=ts["votes"].argmax(-1),
+                         n_ticks=steps))
+        t = t_end
+    cat = lambda k: torch.cat([o[k] for o in outs], 1)
+    done, result = cat("done"), cat("result")
+    return dict(
+        latency=cat("latency")[:, :T],
+        result=result[:, :T],
+        done=done[:, :T],
+        total_time=t,
+        # undone tasks count against accuracy
+        accuracy=((result == labels.reshape(R, -1)) & done).sum(-1)
+        / max(T, 1),
+        cost=ws["cost_wait"] + ws["cost_work"],
+        cost_wait=ws["cost_wait"],
+        cost_work=ws["cost_work"],
+        n_evicted=ws["n_evicted"],
+        n_churned=ws["n_churned"],
+        mean_pool_mu=ws["mu"].mean(-1),
+        n_ticks=torch.stack([o["n_ticks"] for o in outs], 1),
+    )
+
+
+def _to_device(a, device):
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.tensor(a, dtype=torch.bool, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.tensor(a.astype(np.int64), device=device)
+    return torch.tensor(a, dtype=torch.float32, device=device)
+
+
+def draw_batch_init(cfg: FastConfig, n_reps: int, rng: np.random.Generator):
+    """One run's initial draws for ``n_reps`` replications, as numpy: the
+    worker state and banks of :func:`_init_workers` and the ``uint32``
+    counter seeds. Returns ``dict(ws=..., banks=..., seed=...)``, the form
+    ``simulate(draws=...)`` takes."""
+    ws, banks = _init_workers(cfg, rng, (n_reps,))
+    seed = rng.integers(0, 2 ** 32, (n_reps,), dtype=np.uint64)
+    return dict(ws=ws, banks=banks, seed=seed)
+
+
+def _draws_to_device(draws, device):
+    """``draws`` (numpy, or ``u`` already a tensor) as tensors on
+    ``device``: the seeds as int64, a learning round's uniforms ``u`` as
+    float32."""
+    out = dict(
+        ws={k: _to_device(v, device) for k, v in draws["ws"].items()},
+        banks={k: _to_device(v, device) for k, v in draws["banks"].items()},
+        seed=torch.tensor(np.asarray(draws["seed"]).astype(np.uint32)
+                          .astype(np.int64), device=device))
+    if "u" in draws:
+        u = draws["u"]
+        out["u"] = (u.to(device, torch.float32) if torch.is_tensor(u) else
+                    torch.tensor(np.asarray(u), dtype=torch.float32,
+                                 device=device))
+    return out
+
+
+def simulate(cfg: FastConfig, n_reps: int, *, seed: int = 0,
+             true_labels=None, device="cuda", draws=None):
+    """Run ``n_reps`` independent replications of the labeling simulation
+    in lock-step on ``device``.
+
+    The initial worker pools, banks and counter seeds come from a numpy
+    generator seeded with ``seed``, or from ``draws`` (see
+    :func:`draw_batch_init`; a test injects the reference's). Returns a
+    dict of tensors with leading dim ``n_reps``: latency, done and result
+    ``(n_reps, n_tasks)``, total_time, accuracy, cost and pool counters,
+    and the port's ``n_ticks`` ``(n_reps, n_batches)``.
+    """
+    dev = resolve_device(device)
+    if true_labels is None:
+        true_labels = np.zeros(cfg.n_tasks, dtype=np.int64)
+    if draws is None:
+        draws = draw_batch_init(cfg, n_reps, np.random.default_rng(seed))
+    d = _draws_to_device(draws, dev)
+    if d["seed"].shape != (n_reps,):
+        raise ValueError(f"draws hold {tuple(d['seed'].shape)} seeds for "
+                         f"n_reps={n_reps}")
+    labels = torch.as_tensor(np.asarray(true_labels).astype(np.int64),
+                             device=dev)
+    return _simulate_one(cfg, d["ws"], d["banks"], d["seed"], labels)
+
+
+# --------------------------------------------------------------------------
+# hybrid / active learning on the batch engine
+# --------------------------------------------------------------------------
+
+def _learner_round(bcfg: FastConfig, X, y, X_test, y_test, k_active: int,
+                   n_passive: int, fit_steps: int, decision_latency_s: float,
+                   use_kernel, W, b, labeled, y_obs, t_sim, draw):
+    """One select -> fit -> crowd-vote -> bookkeeping round for every
+    replication, in the reference's order: entropy on the pre-fit model,
+    ``hybrid_select``, a fresh-Adam ``fit`` on the labels so far, one crowd
+    batch of the chosen points, the dump-row scatter of the new labels,
+    then ``test_accuracy``.
+
+    ``W``/``b`` are ``(R, d, C)``/``(R, C)``, ``labeled``/``y_obs``
+    ``(R, n)``, ``t_sim`` ``(R,)``; ``draw`` holds the round's randomness
+    on the device: ``u`` ``(R, n)`` passive uniforms and the crowd batch's
+    ``ws``, ``banks`` and ``seed``. Returns ``(W, b, labeled, y_obs,
+    t_sim, aux)``."""
+    n = labeled.shape[-1]
+    st = linear.with_params(W, b)
+    ent = linear.entropy(st, X, use_kernel=use_kernel)
+    chosen, take, act_mask = lsel.hybrid_select(draw["u"], ent, labeled,
+                                                k_active, n_passive)
+    st = linear.fit(st, X, y_obs, labeled.to(torch.float32),
+                    steps=fit_steps)
+    out = _simulate_one(bcfg, draw["ws"], draw["banks"], draw["seed"],
+                        y[chosen])
+    done = out["done"] & take
+    # padding entries of `chosen` (take=False) may repeat valid indices;
+    # scatter through a dump column so no point receives two updates
+    chosen_w = torch.where(done, chosen, n)
+    pad = lambda a: torch.cat([a, torch.zeros_like(a[:, :1])], 1)
+    y_obs = pad(y_obs).scatter_(1, chosen_w, out["result"])[:, :n]
+    labeled = pad(labeled).scatter_(1, chosen_w, True)[:, :n]
+    t_sim = t_sim + out["total_time"] + decision_latency_s
+    acc = linear.test_accuracy(st, X_test, y_test)
+    return (st.W, st.b, labeled, y_obs, t_sim,
+            dict(acc=acc, act_mask=act_mask, ent=ent, chosen=chosen,
+                 take=take, done=done, total_time=out["total_time"],
+                 n_ticks=out["n_ticks"][:, 0]))
+
+
+def draw_round(bcfg: FastConfig, n_reps: int, n: int,
+               rng: np.random.Generator, gen: torch.Generator):
+    """One learning round's randomness for ``n_reps`` replications over
+    ``n`` points: the passive uniforms ``u`` ``(n_reps, n)`` from ``gen``
+    on its device, and the crowd batch's fresh pool, banks and seeds from
+    ``rng`` (host numpy, as :func:`draw_batch_init`)."""
+    u = torch.rand((n_reps, n), generator=gen, device=gen.device)
+    return dict(u=u, **draw_batch_init(bcfg, n_reps, rng))
+
+
+def _learning_setup(cfg: FastConfig, X, y, X_test, y_test, k_active, dev):
+    X = torch.as_tensor(np.asarray(X, np.float32), device=dev)
+    X_test = torch.as_tensor(np.asarray(X_test, np.float32), device=dev)
+    y_np = np.asarray(y).astype(np.int64)
+    y = torch.as_tensor(y_np, device=dev)
+    y_test = torch.as_tensor(np.asarray(y_test).astype(np.int64), device=dev)
+    n_classes = int(y_np.max()) + 1
+    p = cfg.pool_size
+    if k_active is None:
+        k_active = p // 2
+    bcfg = dataclasses.replace(cfg, n_tasks=p, batch_size=p,
+                               n_classes=n_classes)
+    return X, y, X_test, y_test, n_classes, int(k_active), bcfg
+
+
+def simulate_learning_batch(cfg: FastConfig, X, y, X_test, y_test, *,
+                            rounds: int = 10, n_reps: int = 64,
+                            k_active: Optional[int] = None, seed: int = 0,
+                            fit_steps: int = 60,
+                            decision_latency_s: float = 15.0,
+                            use_kernel: bool = True, device="cuda",
+                            draws=None):
+    """Vectorized hybrid learning: rounds as a Python loop, replications as
+    the leading dim of every tensor, one entropy launch per round for all
+    of them.
+
+    Each round draws, per replication, the passive uniforms (a
+    ``torch.Generator`` on the device seeded with ``seed``) and the crowd
+    batch's fresh pool, banks and counter seed (a numpy generator seeded
+    with ``seed``); ``draws`` (a sequence of ``rounds`` dicts as
+    :func:`draw_round` returns) replaces them. ``use_kernel=False`` scores
+    entropy with the plain version.
+
+    Returns a dict with ``curve`` = {t, n_labeled, acc}, each ``(n_reps,
+    rounds + 1)``, and the final ``W``/``b``/``labeled``/``y_obs``/
+    ``total_time``.
+    """
+    dev = resolve_device(device)
+    X, y, X_test, y_test, C, k_active, bcfg = _learning_setup(
+        cfg, X, y, X_test, y_test, k_active, dev)
+    n, d = X.shape
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st = linear.init(d, C, lead=(n_reps,), device=dev)
+    W, b = st.W, st.b
+    labeled = torch.zeros((n_reps, n), dtype=torch.bool, device=dev)
+    y_obs = torch.zeros((n_reps, n), dtype=torch.int64, device=dev)
+    t = torch.zeros((n_reps,), device=dev)
+    ts, nl, accs = [t], [labeled.sum(-1)], [linear.test_accuracy(st, X_test,
+                                                                  y_test)]
+    for r in range(rounds):
+        draw = draws[r] if draws is not None else draw_round(
+            bcfg, n_reps, n, rng, gen)
+        W, b, labeled, y_obs, t, aux = _learner_round(
+            bcfg, X, y, X_test, y_test, k_active, cfg.pool_size - k_active,
+            fit_steps, decision_latency_s, use_kernel, W, b, labeled, y_obs, t,
+            _draws_to_device(draw, dev))
+        ts.append(t)
+        nl.append(labeled.sum(-1))
+        accs.append(aux["acc"])
+    curve = dict(t=torch.stack(ts, 1), n_labeled=torch.stack(nl, 1),
+                 acc=torch.stack(accs, 1))
+    return dict(curve=curve, W=W, b=b, labeled=labeled, y_obs=y_obs,
+                total_time=t)
+
+
+def simulate_learning(cfg: FastConfig, X, y, X_test, y_test, *,
+                      rounds: int = 10, k_active: Optional[int] = None,
+                      seed: int = 0, fit_steps: int = 60,
+                      decision_latency_s: float = 15.0,
+                      use_kernel: bool = True, accest=None, device="cuda",
+                      draws=None):
+    """Hybrid learning loop, one replication per call (the scalar path).
+
+    The same round as :func:`simulate_learning_batch` at one replication,
+    with the simulated time summed on the host in float64, as the
+    reference's scalar loop does. Pass an :class:`~repro_torch.learning.
+    allocate.AccEst` as ``accest`` to re-split the active/passive budget
+    between rounds from leave-one-arm-out refits. Returns ``(curve, info)``
+    with ``curve = [(sim_time, n_labeled, test_acc)]``.
+    """
+    dev = resolve_device(device)
+    X, y, X_test, y_test, C, k_active, bcfg = _learning_setup(
+        cfg, X, y, X_test, y_test, k_active, dev)
+    n, d = X.shape
+    p = cfg.pool_size
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st = linear.init(d, C, lead=(1,), device=dev)
+    W, b = st.W, st.b
+    labeled = torch.zeros((1, n), dtype=torch.bool, device=dev)
+    y_obs = torch.zeros((1, n), dtype=torch.int64, device=dev)
+    t_sim = 0.0
+
+    def test_acc(W, b):
+        return float(linear.test_accuracy(linear.with_params(W, b), X_test,
+                                          y_test)[0])
+
+    def refit_acc(sw):
+        st = linear.fit(linear.with_params(W, b), X, y_obs, sw,
+                        steps=fit_steps)
+        return test_acc(st.W, st.b)
+
+    curve = [(0.0, 0, test_acc(W, b))]
+    for r in range(rounds):
+        draw = draws[r] if draws is not None else draw_round(
+            bcfg, 1, n, rng, gen)
+        W, b, labeled, y_obs, _, aux = _learner_round(
+            bcfg, X, y, X_test, y_test, k_active, p - k_active, fit_steps,
+            decision_latency_s, use_kernel, W, b, labeled, y_obs,
+            torch.zeros((1,), device=dev), _draws_to_device(draw, dev))
+        t_sim += float(aux["total_time"][0]) + decision_latency_s
+        curve.append((t_sim, int(labeled.sum()), float(aux["acc"][0])))
+        if accest is not None:
+            # leave-one-arm-out counterfactual: credit each arm the test
+            # accuracy its newly bought labels add to a refit on all labels
+            chosen, done = aux["chosen"][0], aux["done"][0]
+            act = aux["act_mask"][0][chosen]
+            act_pts, pas_pts = chosen[act & done], chosen[~act & done]
+            lab_f = labeled.to(torch.float32)
+            drop_act, drop_pas = lab_f.clone(), lab_f.clone()
+            drop_act[0, act_pts] = 0.0
+            drop_pas[0, pas_pts] = 0.0
+            acc_full = refit_acc(lab_f)
+            g_act = (acc_full - refit_acc(drop_act)) / max(len(act_pts), 1)
+            g_pas = (acc_full - refit_acc(drop_pas)) / max(len(pas_pts), 1)
+            k_active = min(p, max(0, int(round(
+                accest.update(g_act, g_pas) * p))))
+    return curve, dict(W=W[0], b=b[0], labeled=labeled[0], y_obs=y_obs[0])

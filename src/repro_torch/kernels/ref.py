@@ -27,3 +27,11 @@ def ds_estep_ref(rows, idx):
         acc = acc + g[..., v, :]
     logp = acc - math.log(C)
     return logp, torch.softmax(logp, dim=-1)
+
+
+def entropy_ref(logits):
+    """Predictive entropy per row: (..., V) float32 or bfloat16 logits ->
+    (...) float32. Same op order as the JAX package's oracle: log-softmax
+    in float32, then ``-(exp(logp) * logp).sum(-1)``."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -(torch.exp(logp) * logp).sum(-1)

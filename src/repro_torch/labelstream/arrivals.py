@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class ArrivalConfig:
@@ -31,9 +33,12 @@ class ArrivalConfig:
     amplitude: float = 0.8       # diurnal modulation depth in [0, 1)
 
 
-def init_arrival_state(cfg: ArrivalConfig, n_reps: int = 1, device="cpu"):
-    """mmpp mode per replication (unused by the other kinds)."""
-    return dict(mode=torch.zeros((n_reps,), dtype=torch.int64, device=device))
+def init_arrival_state(cfg: ArrivalConfig, n_reps: int = 1,
+                       device="cuda"):
+    """mmpp mode per replication (unused by the other kinds), on ``device``
+    (the card unless the caller asks for the CPU)."""
+    return dict(mode=torch.zeros((n_reps,), dtype=torch.int64,
+                                 device=resolve_device(device)))
 
 
 def rate_at(cfg: ArrivalConfig, state, t, rate=None):

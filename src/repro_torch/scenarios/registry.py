@@ -1,14 +1,18 @@
-"""The port's copies of the reference's registered stream workloads.
+"""The port's copies of the reference's registered workloads.
 
-Each entry is the ``StreamConfig`` that ``repro.scenarios.compile.
+Each stream entry is the ``StreamConfig`` that ``repro.scenarios.compile.
 to_stream_config(get_scenario(name))`` lowers the reference's registry
-scenario to (``src/repro/scenarios/registry.py``). This stands in for the
-reference's declarative spec layer until that is ported.
+scenario to (``src/repro/scenarios/registry.py``); each batch entry is the
+``FastConfig`` that ``to_fast_config`` lowers it to, with the scenario's
+dataset and learner fields that ``run_learning`` reads
+(:class:`LearningSpec`). This stands in for the reference's declarative
+spec layer until that is ported.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core.simfast import FastConfig
 from repro_torch.labelstream.arrivals import ArrivalConfig
 from repro_torch.labelstream.policy import PolicyConfig
 from repro_torch.labelstream.router import StreamConfig
@@ -54,3 +58,52 @@ def get_stream_config(name: str, overrides: dict = None) -> StreamConfig:
         raise KeyError(f"unknown stream workload {name!r}; ported: "
                        f"{', '.join(list_stream_configs())}") from None
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+@dataclasses.dataclass(frozen=True)
+class LearningSpec:
+    """The scenario fields ``run_learning`` reads besides the
+    ``FastConfig``: the Gaussian dataset's width and separation, the class
+    count, and the learner policy (kind PL/AL/HL, active fraction, decision
+    latency). Defaults are the reference's ``ScenarioSpec`` defaults."""
+    n_features: int = 8
+    class_sep: float = 1.8
+    n_classes: int = 2
+    kind: str = "HL"
+    al_fraction: float = 0.5
+    decision_latency_s: float = 15.0
+
+
+_FAST = {
+    "smallR1": FastConfig(pool_size=10, n_tasks=40),
+    # the whole 400-task set as one batch, 3-vote QC, PM_l=150 maintenance
+    "throughput_v3_pm": FastConfig(pool_size=15, n_tasks=400, batch_size=400,
+                                   votes_needed=3, pm_l=150.0,
+                                   max_batch_time=2e5),
+    # the hybrid-learning acceptance workload: one 10-worker pool labeling
+    # learner-selected batches
+    "hybrid_small": FastConfig(pool_size=10),
+}
+_LEARNING = {name: LearningSpec() for name in _FAST}
+
+
+def list_fast_configs() -> list:
+    """Sorted names of the ported batch-engine workloads."""
+    return sorted(_FAST)
+
+
+def get_fast_config(name: str, overrides: dict = None) -> FastConfig:
+    """The named workload's ``FastConfig`` with top-level field
+    ``overrides`` applied."""
+    try:
+        cfg = _FAST[name]
+    except KeyError:
+        raise KeyError(f"unknown batch workload {name!r}; ported: "
+                       f"{', '.join(list_fast_configs())}") from None
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def get_learning_spec(name: str) -> LearningSpec:
+    """The named workload's dataset and learner fields."""
+    get_fast_config(name)
+    return _LEARNING[name]

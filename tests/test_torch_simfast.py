@@ -254,5 +254,5 @@ def test_arrivals_match_reference_in_distribution(kind):
             assert abs(flip - p) <= 5 * math.sqrt(p * (1 - p) / n_reps)
         else:
             assert torch.equal(st2["mode"], st["mode"])
-    init = tarr.init_arrival_state(ct, 3)
+    init = tarr.init_arrival_state(ct, 3, device="cpu")
     assert init["mode"].shape == (3,) and int(init["mode"].sum()) == 0
