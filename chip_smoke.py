@@ -30,7 +30,24 @@ drives the port's main path on the card:
      the timings of phases 6-7: the entropy kernel per call and on the
      device beside its bound, its plain version and
      ``Categorical.entropy``, replications per second, and a profiled
-     round (kernels per round, device idle share).
+     round (kernels per round, device idle share);
+  8. the ``flash_attention`` kernel against its plain version: the
+     reference tests' grid in float32 and bfloat16, the encoder's
+     full-width micro-batch (64, 10 / 1 heads, 48 tokens, D = 256), the
+     model's window binding at 4096 tokens, and a ragged head dim;
+  9. the ``linear_scan`` kernel against its plain version: the reference
+     tests' grid, the encoder's RG-LRU shape (64, 48, 2560) with h0 and
+     (2, 4096, 2560);
+ 10. LM-featured hybrid learning through the full-width recurrentgemma-2b
+     (2.89 B parameters, random weights from a seed): ``run_learning(
+     "hybrid_small")`` with ``features.kind="lm"`` at 64 replications x 10
+     rounds x 60 fit steps on 1500 + 500 tasks of 48 tokens (32
+     micro-batches of 64), twice, bit for bit, with 8 flash and 18 scan
+     launches per micro-batch; the kernels' forward against the plain
+     versions' forward on the card; a reduced model on the card against
+     the port on the CPU; tasks embedded per second, replications per
+     second, the encoder's device idle share, and the kernels' times
+     beside their bounds, their plain versions and (flash) SDPA.
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -52,6 +69,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 H100_F32_FLOPS = 67e12              # H100 SXM float32, no tensor cores
+H100_BF16_FLOPS = 989e12            # H100 SXM bfloat16 tensor cores, dense
+# phase 10: the full-width model (a rehearsal on a small machine sets it
+# to True)
+EMBED_REDUCED = False
 
 
 def fail(msg: str):
@@ -130,6 +151,37 @@ def entropy_bound_ms(N, V, elt):
                                        else "operations"), nbytes
 
 
+def flash_bound_ms(B, Hq, Hkv, Sq, Sk, D, elt, causal, window):
+    """Least time for attention on an H100 SXM: q, k, v read once and o
+    written once at the memory rate, or the two products over the (q, k)
+    pairs the masks keep (2 D multiply-adds each for q.k and p v) at the
+    bfloat16 tensor-core rate, whichever is larger."""
+    nbytes = elt * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
+    q = np.arange(Sq)[:, None]
+    k = np.arange(Sk)[None, :]
+    keep = np.ones((Sq, Sk), bool)
+    if causal:
+        keep &= k <= q
+    if window > 0:
+        keep &= q - k < window
+    flops = 4 * D * int(keep.sum()) * B * Hq
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / H100_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def scan_bound_ms(B, S, D, elt, h0):
+    """Least time for the recurrence on an H100 SXM: a and b read once, h
+    written once (h0 read once) at the memory rate, or its 2 float32
+    operations per element at the float32 rate."""
+    nbytes = 3 * B * S * D * elt + (4 * B * D if h0 else 0)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 2 * B * S * D / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
 def make_estep_inputs(gen, B, W, C, T, V, dev):
     R = W * C + 1
     shape_r = (R, C) if B is None else (B, R, C)
@@ -158,13 +210,26 @@ def main():
     from repro_torch.labelstream import aggregate, router
     from repro_torch.learning import linear
     from repro_torch.scenarios import (
-        get_fast_config, get_stream_config, run_learning, spec_dataset,
+        get_fast_config, get_learning_spec, get_stream_config, run_learning,
+        spec_dataset,
     )
+    from repro_torch.embed import bank as ebank
+    from repro_torch.embed.corpus import make_tokens
+    from repro_torch.embed import encoder as eenc
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import linear_scan
+    from repro_torch.kernels.ref import attention_ref, linear_scan_ref
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models import recurrent as mrec
+    from repro_torch.device import full_fp32
+    from repro_torch.models import model as mmodel
+    from repro_torch.models.model import compute_params, forward
+    from repro_torch.models.params import leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
+    card_kind = torch.cuda.get_device_name(0)
 
     # ---- phase 1: the card and the build --------------------------------
     smi = subprocess.run(
@@ -172,7 +237,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
-        f"{kind}, power limit unknown"
+        f"{card_kind}, power limit unknown"
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -692,8 +757,484 @@ def main():
             say(f"[profile] learning {label}: device time not measured (no "
                 "device events)")
 
+    # ---- phase 8: the flash_attention kernel against its plain version ---
+    # tolerances as tests/test_kernels.py: 2e-5 in float32 (the kernel sums
+    # q.k and p v in another order than the plain version's matmuls), 2e-2
+    # in bfloat16 (both round the output to bfloat16)
+    tol = lambda dt: 2e-2 if dt == bf16 else 2e-5
+    tsp = lambda x: x.transpose(1, 2)
+
+    def flash_inputs(B, Hq, Hkv, Sq, Sk, D, dt, layout):
+        """(B, S, H, D) operands: made so (``bshd``), or made (B, H, S, D)
+        as the reference's grid is and passed as transposed views
+        (``bhsd``, read by stride)."""
+        if layout == "bhsd":
+            sq, sk, t = (B, Hq, Sq, D), (B, Hkv, Sk, D), tsp
+        else:
+            sq, sk, t = (B, Sq, Hq, D), (B, Sk, Hkv, D), (lambda x: x)
+        return tuple(t(torch.randn(sh, generator=gen, device=dev).to(dt))
+                     for sh in (sq, sk, sk))
+
+    def flash_plain(q, k, v, causal, window):
+        return tsp(attention_ref(tsp(q), tsp(k), tsp(v), causal=causal,
+                                 window=window))
+
+    flash_cases = []
+    for shape in [(2, 4, 2, 256, 256, 64), (1, 8, 8, 384, 384, 128),
+                  (2, 4, 1, 128, 512, 64), (1, 2, 2, 200, 200, 64),
+                  (1, 6, 2, 256, 256, 128)]:
+        for causal, window in [(True, 0), (False, 0), (True, 96)]:
+            if not causal and shape[3] != shape[4]:
+                continue
+            for dt in (f32, bf16):
+                flash_cases.append((f"grid {shape} c={int(causal)} "
+                                    f"w={window} {dt}".replace("torch.", ""),
+                                    shape, causal, window, dt, "bhsd"))
+    FLASH_MAIN = (64, 10, 1, 48, 48, 256)
+    flash_cases += [
+        ("encoder (64, 48, 10/1, 256) bf16", FLASH_MAIN, True, 2048, bf16,
+         "bshd"),
+        ("window at length (1, 4096, 10/1, 256) bf16",
+         (1, 10, 1, 4096, 4096, 256), True, 2048, bf16, "bshd"),
+        ("ragged (2, 77, 4/2, 80) bf16", (2, 4, 2, 77, 77, 80), True, 0,
+         bf16, "bshd")]
+    flash_inputs_kept, flash_errs = {}, {}
+    for label, shape, causal, window, dt, layout in flash_cases:
+        q, k, v = flash_inputs(*shape, dt, layout)
+        o = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = flash_plain(q, k, v, causal, window)
+        err = (o.float() - want.float()).abs().max().item()
+        ok = (bool(torch.isfinite(o).all()) and o.shape == q.shape
+              and bool(torch.allclose(o.float(), want.float(), atol=tol(dt),
+                                      rtol=tol(dt))))
+        say(f"[flash] {label} ({layout}): max|do|={err:.3g} (atol/rtol "
+            f"{tol(dt)})")
+        check(ok, f"flash_attention kernel disagrees with its plain version "
+              f"at {label}")
+        check(torch.equal(o, flash_attention(q, k, v, causal=causal,
+                                             window=window)),
+              f"flash_attention is not repeatable at {label}")
+        flash_errs[label] = err
+        if shape in (FLASH_MAIN, (1, 10, 1, 4096, 4096, 256)):
+            flash_inputs_kept[label] = (shape, causal, window, dt,
+                                        (q, k, v))
+
+    # ---- phase 9: the linear_scan kernel against its plain version ------
+    # tolerance 20x tests/test_kernels.py's (as its scan test); the kernel
+    # and the plain version round the same multiply and add in the same
+    # order, so they are also held equal bit for bit
+    scan_cases = [(f"grid ({B}, {S}, {D}) {str(dt)[6:]}", B, S, D, dt)
+                  for B, S, D in ((1, 64, 64), (3, 300, 150), (8, 256, 128),
+                                  (2, 1000, 33))
+                  for dt in (f32, bf16)]
+    SCAN_MAIN = (64, 48, 2560)
+    scan_cases += [("encoder rglru (64, 48, 2560) f32", *SCAN_MAIN, f32),
+                   ("long (2, 4096, 2560) f32", 2, 4096, 2560, f32)]
+    scan_inputs_kept, scan_errs = {}, {}
+    for label, B, S, D, dt in scan_cases:
+        a = torch.sigmoid(torch.randn((B, S, D), generator=gen,
+                                      device=dev)).to(dt)
+        b = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
+        h0 = torch.randn((B, D), generator=gen, device=dev).to(dt)
+        for init in (h0, None):
+            h = linear_scan(a, b, init)
+            torch.cuda.synchronize()
+            want = linear_scan_ref(a, b, init)
+            err = (h.float() - want.float()).abs().max().item()
+            ok = (bool(torch.isfinite(h).all()) and h.shape == a.shape
+                  and bool(torch.allclose(h.float(), want.float(),
+                                          atol=20 * tol(dt),
+                                          rtol=20 * tol(dt))))
+            same = torch.equal(h, want)
+            say(f"[scan] {label} h0={'yes' if init is not None else 'no'}: "
+                f"max|dh|={err:.3g} (atol/rtol {20 * tol(dt):.3g}), "
+                f"{'bit-equal' if same else 'NOT bit-equal'}")
+            check(ok and same, f"linear_scan kernel disagrees with its plain "
+                  f"version at {label}")
+        scan_errs[label] = err
+        if (B, S, D) in (SCAN_MAIN, (2, 4096, 2560)):
+            scan_inputs_kept[label] = (a, b, h0)
+
+    # ---- phase 10: LM-featured learning at full width --------------------
+    OV10 = {"features.kind": "lm", "embed.model": "recurrentgemma-2b",
+            "embed.reduced": EMBED_REDUCED}
+    spec10 = get_learning_spec("hybrid_small", OV10)
+    cfg10 = eenc.resolved_config(spec10.embed)
+    n_tr, n_te = 1500, 500
+    n_mb = -(-(n_tr + n_te) // spec10.embed.batch_size)
+    group, n_full, rem = cfg10.layer_groups()
+    kinds = group * n_full + rem
+    want_flash = kinds.count("attn") * n_mb
+    want_scan = kinds.count("rglru") * n_mb
+    say(f"[lm] {cfg10.name}{' (reduced)' if EMBED_REDUCED else ''}: "
+        f"{cfg10.n_layers} layers ({kinds.count('rglru')} rglru, "
+        f"{kinds.count('attn')} attn), d_model {cfg10.d_model}, vocab "
+        f"{cfg10.vocab_size}; {n_tr} + {n_te} tasks x "
+        f"{spec10.embed.seq_len} tokens in {n_mb} micro-batches of "
+        f"{spec10.embed.batch_size}")
+    # the embed seed as make_dataset folds dataset seed 0 into it
+    ec10 = dataclasses.replace(spec10.embed, seed=spec10.embed.seed + 7919)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params10 = eenc.model_params(ec10, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params10, torch.is_tensor))
+    say(f"[lm] parameters: {n_params} ({n_params * 4 / 1e9:.2f} GB float32) "
+        f"drawn from the seed in {init_s:.1f} s")
+
+    def counts():
+        return (flash_attention.launches, linear_scan.launches,
+                entropy_scores.launches)
+
+    def zero_counts():
+        flash_attention.launches = 0
+        linear_scan.launches = 0
+        entropy_scores.launches = 0
+
+    learn10 = dict(n_reps=R7, rounds=ROUNDS, fit_steps=FIT)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r10 = run_learning("hybrid_small", overrides=OV10, device="cuda",
+                       n_train=n_tr, n_test=n_te, **learn10)
+    torch.cuda.synchronize()
+    lm_first_s = time.perf_counter() - t0
+    lm_launches = counts()
+    check(lm_launches == (want_flash, want_scan, ROUNDS),
+          f"LM learning made (flash, scan, entropy) = {lm_launches} "
+          f"launches, expected {(want_flash, want_scan, ROUNDS)}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r10b = run_learning("hybrid_small", overrides=OV10, device="cuda",
+                        n_train=n_tr, n_test=n_te, **learn10)
+    torch.cuda.synchronize()
+    lm_second_s = time.perf_counter() - t0
+    check(counts() == lm_launches, "LM learning's second run launched "
+          f"{counts()}")
+    k10 = ("W", "b", "labeled", "y_obs", "total_time")
+    a1 = {**r10["curve"], **{k: r10["raw"][k] for k in k10}}
+    a2 = {**r10b["curve"], **{k: r10b["raw"][k] for k in k10}}
+    diff = [k for k in a1 if not torch.equal(a1[k], a2[k])]
+    check(not diff, f"LM learning is not bitwise repeatable: {diff}")
+    acc10 = a1["acc"].cpu().numpy()
+    t10 = a1["t"].cpu().numpy()
+    nl10 = a1["n_labeled"].cpu().numpy()
+    check(acc10.shape == (R7, ROUNDS + 1) and np.isfinite(acc10).all()
+          and bool((np.diff(t10, axis=1) > 0).all())
+          and bool((np.diff(nl10, axis=1) > 0).all()),
+          "LM learning curve shapes or invariants are wrong")
+    # the dataset alone: encoded twice, bit for bit, timed
+    ds_times, ds = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds.append(ebank.make_dataset(spec10, n_tr, n_te, seed=0,
+                                     device="cuda"))
+        torch.cuda.synchronize()
+        ds_times.append(time.perf_counter() - t0)
+    check(all(np.array_equal(x, y) for x, y in zip(ds[0], ds[1])),
+          "LM features are not bitwise repeatable on the card")
+    X10 = ds[0][0]
+    check(X10.shape == (n_tr, spec10.n_features)
+          and np.isfinite(X10).all(), "LM features are not finite (N, F)")
+    tasks_per_s = (n_tr + n_te) / ds_times[1]
+    # the learning loop alone on those features
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r10c = run_learning("hybrid_small", *ds[0], device="cuda", **learn10)
+    torch.cuda.synchronize()
+    learn_only_s = time.perf_counter() - t0
+    check(all(torch.equal(r10c["curve"][k], r10["curve"][k])
+              for k in ("t", "n_labeled", "acc")),
+          "the LM dataset passed explicitly gives another curve")
+    fin10 = acc10[:, -1]
+    say(f"[lm] run_learning(features.kind=lm): {R7} reps x {ROUNDS} rounds "
+        f"x {FIT} fit steps; first run {lm_first_s:.2f} s, second run "
+        f"{lm_second_s:.2f} s; launches flash "
+        f"{lm_launches[0]} (= {kinds.count('attn')} x {n_mb}), scan "
+        f"{lm_launches[1]} (= {kinds.count('rglru')} x {n_mb}), entropy "
+        f"{lm_launches[2]}; second run bit-equal; final accuracy "
+        f"{fin10.mean():.4f} +- {fin10.std():.4f}, labels "
+        f"{nl10[:, -1].min()}..{nl10[:, -1].max()}; {card}")
+    say(f"[time] LM dataset ({n_tr + n_te} tasks x {spec10.embed.seq_len} "
+        f"tokens): {ds_times[0]:.3f} s / {ds_times[1]:.3f} s -> "
+        f"{tasks_per_s:.1f} tasks embedded/s (second call); learning on it "
+        f"{learn_only_s:.3f} s -> {R7 / learn_only_s:.2f} replications/s; "
+        f"{card}")
+
+    # the kernels' forward against the plain versions' forward, same
+    # parameters and tokens, 3 micro-batches. An attention output that
+    # rounds to the other bfloat16 neighbour (the kernel sums in another
+    # order) moves the later layers by bfloat16 ulps through 26 layers, so
+    # this comparison is coarse: phases 8 and 9 hold each kernel tightly at
+    # these shapes. The limit (3e-2 mean, 0.3 max, of the mean |h|) lies
+    # 1.6x above the sound reading on an H100 (1.9e-2) and must lie below
+    # that of a planted fault, the plain attention without its causal mask
+    # (1.06). A second fault, p rounded to bfloat16 before PV (what the
+    # reference's default path does in bfloat16), reads 2.7e-2: within the
+    # limit, so this comparison does not tell that rounding apart.
+    rng10 = np.random.default_rng(0)
+    lab = rng10.integers(0, 2, 3 * spec10.embed.batch_size).astype(np.int32)
+    tok, _ = make_tokens(ec10, lab, np.zeros_like(lab, bool), 2,
+                         cfg10.vocab_size, spec10.class_sep)
+    tok = torch.as_tensor(tok, device=dev)
+    cp10 = compute_params(params10)
+    Bm = spec10.embed.batch_size
+
+    def forward_with(attn=None, scan=None):
+        saved = (mlayers.flash_attention, mrec.linear_scan)
+        mlayers.flash_attention = attn or saved[0]
+        mrec.linear_scan = scan or saved[1]
+        try:
+            return torch.cat([forward(cp10, cfg10, tok[i:i + Bm],
+                                      logits_mode="hidden")
+                              for i in range(0, len(tok), Bm)])
+        finally:
+            mlayers.flash_attention, mrec.linear_scan = saved
+
+    def attention_p_rounded(q, k, v, *, causal, window):
+        """The plain attention with p rounded to q's dtype before PV."""
+        q, k, v = tsp(q), tsp(k), tsp(v)
+        G, Sq, D = q.shape[1] // k.shape[1], q.shape[2], q.shape[3]
+        kk = k.repeat_interleave(G, 1).float()
+        vv = v.repeat_interleave(G, 1).float()
+        sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * (
+            1.0 / math.sqrt(D))
+        i = torch.arange(Sq, device=q.device)
+        keep = torch.ones((Sq, Sq), dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= i[None] <= i[:, None]
+        if window > 0:
+            keep &= i[:, None] - i[None] < window
+        p = torch.softmax(sc.masked_fill(~keep, -1e30), -1).to(q.dtype)
+        return tsp(torch.einsum("bhqk,bhkd->bhqd", p.float(), vv)
+                   .to(q.dtype))
+
+    plain_flash = lambda q, k, v, *, causal, window: flash_plain(
+        q, k, v, causal, window)
+    no_mask = lambda q, k, v, *, causal, window: flash_plain(
+        q, k, v, False, 0)
+    hk = forward_with()
+    hp = forward_with(plain_flash, linear_scan_ref)
+    scale = hp.abs().mean().item()
+
+    def fwd_err(h):
+        dh = (h - hp).abs()
+        return (dh.mean().item() / scale, dh.max().item() / scale,
+                dh.eq(0).float().mean().item())
+
+    mean_rel, max_rel, frac_eq = fwd_err(hk)
+    fault_nm = fwd_err(forward_with(no_mask, linear_scan_ref))
+    fault_pr = fwd_err(forward_with(attention_p_rounded, linear_scan_ref))
+    say(f"[lm] kernels' forward vs plain forward on the card ({len(tok)} "
+        f"tasks, hidden states): mean |dh| {mean_rel:.3g} and max "
+        f"{max_rel:.3g} of the mean |h| {scale:.4g}; {frac_eq * 100:.1f}% "
+        f"equal (limit: 3e-2 and 0.3). Planted faults, same measure: no "
+        f"causal mask {fault_nm[0]:.3g} / {fault_nm[1]:.3g} "
+        f"({fault_nm[2] * 100:.1f}% equal); p rounded to bfloat16 "
+        f"{fault_pr[0]:.3g} / {fault_pr[1]:.3g} ({fault_pr[2] * 100:.1f}% "
+        f"equal)")
+    check(bool(torch.isfinite(hk).all()) and mean_rel <= 3e-2
+          and max_rel <= 0.3, "the kernels' forward disagrees with the "
+          "plain forward")
+    check(fault_nm[0] > 3e-2, "the forward comparison's limit does not "
+          "catch an attention without its causal mask")
+
+    # every bfloat16 GEMM of one rglru block and one attn block at full
+    # width (inside full_fp32, as forward runs them) against the same
+    # product done by hand in float32 and rounded once: float32
+    # accumulation, as the reference's. With it the two differ by at most
+    # one bfloat16 ulp but in a few elements (near zero, or where the
+    # tensor cores' float32 sums round otherwise): at most 3.7e-4 of them
+    # on an H100. A planted fault, 8 slices of K summed to bfloat16 and
+    # added in bfloat16 as a split-K GEMM with reduced-precision
+    # reductions would, puts 0.2 of them beyond one ulp. The limit, 1e-2,
+    # lies between the two.
+    from torch.overrides import TorchFunctionMode
+
+    def bf16_order(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    def gemm_by_hand(a, b, split):
+        out = None
+        for ks in torch.arange(a.shape[-1], device=a.device
+                               ).tensor_split(split):
+            part = (a[..., ks].float() @ b[ks].float()).to(bf16)
+            out = part if out is None else out + part
+        return out
+
+    class GemmAudit(TorchFunctionMode):
+        """Runs every op as it is; for each bfloat16 product, records the
+        share of its elements more than one ulp from the product by hand,
+        and the same for the planted fault."""
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (getattr(func, "__name__", "") in ("matmul", "__matmul__")
+                    and all(a.dtype == bf16 for a in args[:2])):
+                a, b = args[:2]
+                want = bf16_order(gemm_by_hand(a, b, 1))
+                far = lambda y: ((bf16_order(y) - want).abs() > 1
+                                 ).float().mean().item()
+                self.rows.append((tuple(b.shape), far(out),
+                                  far(gemm_by_hand(a, b, 8))))
+            return out
+
+    gp0 = tree_map(lambda t: t[0], cp10["groups"], is_leaf=torch.is_tensor)
+    xb = cp10["embed"][tok[:Bm].long()].to(bf16)
+    audit = GemmAudit()
+    with full_fp32(), torch.no_grad(), audit:
+        for bi, bkind in enumerate(group):
+            xb = mmodel.apply_block(gp0[bi], bkind, xb, cfg10)
+    gemm_far = max(r[1] for r in audit.rows)
+    gemm_fault = min(r[2] for r in audit.rows)
+    say(f"[lm] the bfloat16 GEMMs of blocks {', '.join(group)} at full width "
+        f"(M = {Bm * spec10.embed.seq_len}), cuBLAS vs float32 accumulation "
+        f"by hand: share of elements beyond one ulp per GEMM "
+        + ", ".join(f"{r[0]} {r[1]:.3g}" for r in audit.rows)
+        + f"; at most {gemm_far:.3g} (limit 1e-2). Planted bfloat16 split-K: "
+        f"at least {gemm_fault:.3g}")
+    check(len(audit.rows) > 0 and gemm_far <= 1e-2, "cuBLAS's bfloat16 GEMMs "
+          "do not accumulate as float32 does")
+    check(gemm_fault > 1e-2, "the GEMM check's limit does not catch "
+          "bfloat16 split-K reductions")
+
+    # a reduced model on the card against the port on the CPU: the same
+    # features to the bfloat16 tolerance (cuBLAS and the CPU's GEMMs sum in
+    # other orders), then the learning loop on the same round draws
+    OVr = dict(OV10, **{"embed.reduced": True})
+    spec_r = get_learning_spec("hybrid_small", OVr)
+    Xg = ebank.make_dataset(spec_r, n_tr, n_te, seed=0, device="cuda")
+    Xc = ebank.make_dataset(spec_r, n_tr, n_te, seed=0, device="cpu")
+    dX = np.abs(Xg[0] - Xc[0])
+    sX = np.abs(Xc[0]).mean()
+    check(all(np.array_equal(a, b) for a, b in zip(Xg[1::2], Xc[1::2])),
+          "reduced LM dataset: card and CPU labels differ")
+    check(dX.mean() <= 3e-2 * sX and dX.max() <= 0.3 * sX,
+          f"reduced LM features: card and CPU differ (mean {dX.mean()}, "
+          f"max {dX.max()})")
+    bcfg10 = dataclasses.replace(get_fast_config("hybrid_small"),
+                                 n_tasks=10, batch_size=10, n_classes=2)
+    g10 = torch.Generator(device=dev)
+    g10.manual_seed(5)
+    rng_d = np.random.default_rng(5)
+    nr = 16
+    draws10 = [simfast.draw_round(bcfg10, nr, n_tr, rng_d, g10)
+               for _ in range(ROUNDS)]
+    draws10 = [dict(d, u=d["u"].cpu()) for d in draws10]
+    kwr = dict(n_reps=nr, rounds=ROUNDS, fit_steps=FIT, draws=draws10)
+    cg = run_learning("hybrid_small", *Xg, device="cuda", **kwr)["curve"]
+    cc = run_learning("hybrid_small", *Xc, device="cpu", **kwr)["curve"]
+    ga, ca = cg["acc"][:, -1].cpu().numpy(), cc["acc"][:, -1].numpy()
+    gap = abs(float(ga.mean()) - float(ca.mean()))
+    same_nl = (cg["n_labeled"].cpu() == cc["n_labeled"]).float().mean()
+    say(f"[lm] reduced model, card vs CPU: features mean |dX| "
+        f"{dX.mean() / sX:.3g} and max {dX.max() / sX:.3g} of the mean |X|; "
+        f"learning on the same draws ({nr} reps): final accuracy "
+        f"{ga.mean():.4f} vs {ca.mean():.4f} (gap {gap:.4g}, CPU std "
+        f"{ca.std():.4f}); n_labeled equal in {same_nl.item() * 100:.0f}% "
+        f"of entries")
+    check(gap <= max(float(ca.std()), 0.02),
+          "reduced LM learning: card and CPU final accuracy differ")
+
+    # ---- timings of phases 8-10 -----------------------------------------
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash_t = {}
+    for label, (shape, causal, window, dt, (q, k, v)) in \
+            flash_inputs_kept.items():
+        B, Hq, Hkv, Sq, Sk, D = shape
+        reps = 50 if Sq <= 64 else 5
+        call = lambda: flash_attention(q, k, v, causal=causal,
+                                       window=window)
+        ms = cuda_ms(call, reps)
+        plain = cuda_ms(lambda: flash_plain(q, k, v, causal, window), reps)
+        if window == 0 or window >= Sq:
+            lib_call = lambda: sdpa(tsp(q), tsp(k), tsp(v), is_causal=causal,
+                                    enable_gqa=True)
+        else:
+            qi = torch.arange(Sq, device=dev)
+            mask = ((qi[None] <= qi[:, None])
+                    & (qi[:, None] - qi[None] < window))
+            lib_call = lambda: sdpa(tsp(q), tsp(k), tsp(v), attn_mask=mask,
+                                    enable_gqa=True)
+        lib = cuda_ms(lib_call, reps)
+
+        def many():
+            for _ in range(reps):
+                call()
+        _, _, _, by_name = device_profile(many)
+        dev_us = sum(t for n, t in by_name.items() if "flash_fwd" in n) / reps
+        bound, by, nbytes = flash_bound_ms(B, Hq, Hkv, Sq, Sk, D, 2, causal,
+                                           window)
+        flash_t[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              bound_ms=bound, bound_by=by, dev_us=dev_us)
+        dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}"
+                   f"% of bound)" if dev_us > 0 else "device time not "
+                   "measured (no device events in the profile)")
+        say(f"[time] flash_attention {label}: per call {ms * 1e3:.2f} us, "
+            f"{dev_txt}, plain per call {plain * 1e3:.2f} us, SDPA per call "
+            f"{lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}, {nbytes} "
+            f"B); {card}")
+    scan_t = {}
+    for label, (a, b, h0) in scan_inputs_kept.items():
+        B, S, D = a.shape
+        reps = 50 if S <= 64 else 5
+        ms = cuda_ms(lambda: linear_scan(a, b, h0), reps)
+        plain = cuda_ms(lambda: linear_scan_ref(a, b, h0), max(reps // 5, 1))
+
+        def many():
+            for _ in range(reps):
+                linear_scan(a, b, h0)
+        _, _, _, by_name = device_profile(many)
+        dev_us = sum(t for n, t in by_name.items() if "linear_scan" in n) \
+            / reps
+        bound, by, nbytes = scan_bound_ms(B, S, D, 4, True)
+        scan_t[label] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                             bound_by=by, dev_us=dev_us)
+        dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}"
+                   f"% of bound)" if dev_us > 0 else "device time not "
+                   "measured (no device events in the profile)")
+        say(f"[time] linear_scan {label}: per call {ms * 1e3:.2f} us, "
+            f"{dev_txt}, plain per call {plain * 1e3:.2f} us, bound "
+            f"{bound * 1e3:.3f} us ({by}, {nbytes} B); {card}")
+    # where an encoder micro-batch's time goes
+    toks2 = tok[:2 * Bm]
+    lens2 = torch.full((2 * Bm,), spec10.embed.seq_len, dtype=torch.int32,
+                       device=dev)
+    # (the full model's parameters passed as they are: the reduced runs
+    # above may have pushed them out of the encoder's two-entry cache)
+    enc2 = lambda: eenc.encode(ec10, toks2, lens2, spec10.n_features,
+                               device=dev, params=params10)
+    enc2()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc2()
+    torch.cuda.synchronize()
+    enc_wall = time.perf_counter() - t0
+    wall, n_k, busy, by_name = device_profile(enc2)
+    if n_k:
+        say(f"[profile] encoder, 2 micro-batches of {Bm} x "
+            f"{spec10.embed.seq_len} tokens: {n_k} kernels, device busy "
+            f"{busy / 1e3:.2f} ms of {enc_wall * 1e3:.2f} ms wall without "
+            f"the profiler ({wall * 1e3:.2f} ms with it): device idle "
+            f"{(1 - busy / 1e6 / enc_wall) * 100:.1f}%; {card}")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            say(f"[profile]   {us / 2e3:8.3f} ms/micro-batch  {name[:90]}")
+    else:
+        say("[profile] encoder: device time not measured (no device events)")
+
     t_main = timings["refresh"]
     e_main = ent_t["learn-hybrid"]
+    FLASH_LABEL = "encoder (64, 48, 10/1, 256) bf16"
+    SCAN_LABEL = "encoder rglru (64, 48, 2560) f32"
+    f_main, s_main = flash_t[FLASH_LABEL], scan_t[SCAN_LABEL]
     say(json.dumps({"kernels": [{
         "name": "ds_estep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ds_estep.cu",
@@ -710,9 +1251,26 @@ def main():
         "max_abs_err": ent_errs["learn-hybrid"],
         "ms": e_main["ms"], "plain_ms": e_main["plain_ms"],
         "bound_ms": e_main["bound_ms"], "bound_by": e_main["bound_by"],
-        "library_ms": e_main["library_ms"]}]}))
+        "library_ms": e_main["library_ms"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "launches": lm_launches[0],
+        "max_abs_err": flash_errs[FLASH_LABEL],
+        "ms": f_main["ms"], "plain_ms": f_main["plain_ms"],
+        "bound_ms": f_main["bound_ms"], "bound_by": f_main["bound_by"],
+        "library_ms": f_main["library_ms"]}, {
+        "name": "linear_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan.py:44",
+        "launches": lm_launches[1],
+        "max_abs_err": scan_errs[SCAN_LABEL],
+        "ms": s_main["ms"], "plain_ms": s_main["plain_ms"],
+        "bound_ms": s_main["bound_ms"], "bound_by": s_main["bound_by"],
+        "library_ms": None}]}))
     say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": card_kind,
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -20,8 +20,9 @@ kernel pads the class axis to a 512-lane tile, which a CUDA row kernel does
 not — and through the plain version on the CPU. ``use_kernel=False``
 forces the plain version.
 
-Matrix products run in full float32, as the reference's: ``logits`` turns
-off TF32 for CUDA matmuls (``torch.backends.cuda.matmul.allow_tf32``).
+Matrix products run in full float32, as the reference's: ``logits`` and
+the gradient's product run inside :func:`repro_torch.device.full_fp32`
+(no TF32).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import full_fp32, resolve_device
 from repro_torch.kernels.ref import entropy_ref
 from repro_torch.kernels.uncertainty import entropy_scores
 
@@ -96,9 +97,8 @@ def reset_opt(state: LinearLearner) -> LinearLearner:
 
 
 def logits(state: LinearLearner, X) -> torch.Tensor:
-    # full float32 products, as the reference computes them
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.matmul(X, state.W) + state.b[..., None, :]
+    with full_fp32():
+        return torch.matmul(X, state.W) + state.b[..., None, :]
 
 
 def predict_proba(state: LinearLearner, X) -> torch.Tensor:
@@ -159,7 +159,8 @@ def _step(state: LinearLearner, X, onehot, ws, lr: float, l2: float
     z = logits(state, X)
     e = torch.exp(z - z.amax(-1, keepdim=True))
     g = e * (ws / e.sum(-1))[..., None] - onehot * ws[..., None]
-    gW = torch.matmul(X.transpose(-1, -2), g) + 2.0 * (l2 * state.W)
+    with full_fp32():
+        gW = torch.matmul(X.transpose(-1, -2), g) + 2.0 * (l2 * state.W)
     gb = _row_sum(g)
     t = state.t + 1
     m_W = 0.9 * state.m_W + 0.1 * gW

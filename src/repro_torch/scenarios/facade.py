@@ -2,14 +2,18 @@
 
 Port of the ``engine="simfast"`` branch of ``src/repro/scenarios/
 facade.py::run_learning``: the dataset is built from the workload's spec
-unless matrices are passed, the learner kind sets the round's active /
-passive split, and the batch engine's learning loop runs it.
+unless matrices are passed (Gaussian features, or with ``features.kind=
+"lm"`` a synthetic text corpus encoded through the spec's LM,
+:func:`repro_torch.embed.bank.make_dataset`), the learner kind sets the
+round's active / passive split, and the batch engine's learning loop runs
+it.
 """
 from __future__ import annotations
 
 from repro_torch.core.simfast import simulate_learning, simulate_learning_batch
 from repro_torch.data.datasets import make_classification, train_test_split
 from repro_torch.device import resolve_device
+from repro_torch.embed.bank import make_dataset
 from repro_torch.scenarios.registry import get_fast_config, get_learning_spec
 
 
@@ -30,12 +34,12 @@ def _k_active(spec, pool_size: int) -> int:
 
 
 def spec_dataset(name: str, n_train: int = 1500, n_test: int = 500,
-                 seed: int = 0):
+                 seed: int = 0, overrides: dict = None):
     """The named workload's Gaussian dataset as :func:`run_learning` builds
     it: ``make_classification`` with the spec's width and separation and
     ``n_informative = min(n_features, max(2, n_classes))``, split
     ``n_train``/``n_test``. Returns numpy ``(X, y, X_test, y_test)``."""
-    spec = get_learning_spec(name)
+    spec = get_learning_spec(name, overrides)
     Xa, ya = make_classification(
         n_samples=n_train + n_test, n_features=spec.n_features,
         n_informative=min(spec.n_features, max(2, spec.n_classes)),
@@ -48,12 +52,18 @@ def run_learning(name: str, X=None, y=None, X_test=None, y_test=None, *,
                  vectorized: bool = True, rounds: int = 10, n_reps: int = 64,
                  seed: int = 0, fit_steps: int = 60, k_active=None,
                  use_kernel: bool = True, accest=None, n_train: int = 1500,
-                 n_test: int = 500, device="cuda", draws=None):
+                 n_test: int = 500, device="cuda", draws=None,
+                 overrides: dict = None, embed_draws: dict = None):
     """Hybrid learning on the named workload.
 
-    With ``X=None`` the dataset is built from the workload's spec
-    (:func:`spec_dataset`, seeded with ``seed``). Otherwise
-    pass all of ``X``/``y``/``X_test``/``y_test``. ``vectorized`` runs
+    ``overrides`` takes the reference's dotted keys (see
+    :func:`~repro_torch.scenarios.registry.get_learning_spec`). With
+    ``X=None`` the dataset is built from the spec, seeded with ``seed``:
+    :func:`spec_dataset` for Gaussian features, or for ``features.kind=
+    "lm"`` :func:`~repro_torch.embed.bank.make_dataset` on ``device``, with
+    ``embed_draws`` (its ``u``/``ul``/``params``/``proj``) replacing its
+    draws. Otherwise pass all of ``X``/``y``/``X_test``/``y_test``.
+    ``vectorized`` runs
     :func:`~repro_torch.core.simfast.simulate_learning_batch` over
     ``n_reps`` replications, else the scalar
     :func:`~repro_torch.core.simfast.simulate_learning` (with ``accest``).
@@ -61,12 +71,18 @@ def run_learning(name: str, X=None, y=None, X_test=None, y_test=None, *,
     """
     dev = resolve_device(device)
     cfg = get_fast_config(name)
-    spec = get_learning_spec(name)
+    spec = get_learning_spec(name, overrides)
     if X is None:
         if y is not None or X_test is not None or y_test is not None:
             raise ValueError("run_learning: pass all of X/y/X_test/y_test "
                              "or none (spec-built dataset)")
-        X, y, X_test, y_test = spec_dataset(name, n_train, n_test, seed)
+        if spec.feature_kind == "lm":
+            X, y, X_test, y_test = make_dataset(
+                spec, n_train, n_test, seed=seed, device=dev,
+                **(embed_draws or {}))
+        else:
+            X, y, X_test, y_test = spec_dataset(name, n_train, n_test, seed,
+                                                overrides)
     elif y is None or X_test is None or y_test is None:
         raise ValueError("run_learning: pass all of X/y/X_test/y_test "
                          "or none (spec-built dataset)")

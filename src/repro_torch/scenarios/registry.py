@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.simfast import FastConfig
+from repro_torch.embed.config import EmbedConfig
 from repro_torch.labelstream.arrivals import ArrivalConfig
 from repro_torch.labelstream.policy import PolicyConfig
 from repro_torch.labelstream.router import StreamConfig
@@ -63,15 +64,53 @@ def get_stream_config(name: str, overrides: dict = None) -> StreamConfig:
 @dataclasses.dataclass(frozen=True)
 class LearningSpec:
     """The scenario fields ``run_learning`` reads besides the
-    ``FastConfig``: the Gaussian dataset's width and separation, the class
-    count, and the learner policy (kind PL/AL/HL, active fraction, decision
-    latency). Defaults are the reference's ``ScenarioSpec`` defaults."""
+    ``FastConfig``: the dataset's features (``feature_kind`` "gaussian" or
+    "lm", width, separation, the hard tasks' separation scale), the class
+    count and the share of hard tasks, the LM embedding (``embed``, read
+    when ``feature_kind == "lm"``), and the learner policy (kind PL/AL/HL,
+    active fraction, decision latency). Defaults are the reference's
+    ``ScenarioSpec`` defaults."""
     n_features: int = 8
     class_sep: float = 1.8
     n_classes: int = 2
     kind: str = "HL"
     al_fraction: float = 0.5
     decision_latency_s: float = 15.0
+    feature_kind: str = "gaussian"
+    hard_sep_scale: float = 1.0
+    p_hard: float = 0.0
+    embed: EmbedConfig = EmbedConfig()
+
+    def __post_init__(self):
+        def fail(field, msg):
+            raise ValueError(f"LearningSpec.{field}: {msg}")
+        if self.feature_kind not in ("gaussian", "lm"):
+            fail("feature_kind", "must be 'gaussian' or 'lm', got "
+                 f"{self.feature_kind!r}")
+        if not 0.0 < self.hard_sep_scale <= 1.0:
+            fail("hard_sep_scale", f"must be in (0, 1], got "
+                 f"{self.hard_sep_scale}")
+        if not 0.0 <= self.p_hard <= 1.0:
+            fail("p_hard", f"must be in [0, 1], got {self.p_hard}")
+        if self.embed.bank_size % (2 * self.n_classes) != 0:
+            fail("embed.bank_size", f"{self.embed.bank_size} must be a "
+                 f"multiple of 2 * n_classes = {2 * self.n_classes}")
+        pd = self.embed.projection_dim
+        if pd is not None and pd != self.n_features:
+            fail("embed.projection_dim", f"{pd} must equal n_features "
+                 f"{self.n_features}")
+
+
+# the reference's dotted override keys that the learning path reads, and
+# the LearningSpec field each one sets ("embed.<field>" sets that
+# EmbedConfig field)
+_OVERRIDE_FIELDS = {
+    "features.kind": "feature_kind",
+    "features.n_features": "n_features",
+    "features.class_sep": "class_sep",
+    "features.hard_sep_scale": "hard_sep_scale",
+    "difficulty.p_hard": "p_hard",
+}
 
 
 _FAST = {
@@ -103,7 +142,25 @@ def get_fast_config(name: str, overrides: dict = None) -> FastConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-def get_learning_spec(name: str) -> LearningSpec:
-    """The named workload's dataset and learner fields."""
+def get_learning_spec(name: str, overrides: dict = None) -> LearningSpec:
+    """The named workload's dataset and learner fields, with the
+    reference's dotted ``overrides`` applied (``"features.kind"``,
+    ``"embed.model"``, ``"embed.reduced"``, ``"embed.seq_len"``,
+    ``"embed.batch_size"``, ... ; see ``_OVERRIDE_FIELDS``)."""
     get_fast_config(name)
-    return _LEARNING[name]
+    spec = _LEARNING[name]
+    top, embed = {}, {}
+    for key, value in (overrides or {}).items():
+        if key.startswith("embed."):
+            field = key[len("embed."):]
+            if field not in {f.name for f in dataclasses.fields(EmbedConfig)}:
+                raise KeyError(f"unknown override {key!r}")
+            embed[field] = value
+        elif key in _OVERRIDE_FIELDS:
+            top[_OVERRIDE_FIELDS[key]] = value
+        else:
+            raise KeyError(f"unknown learning override {key!r}; supported: "
+                           f"{sorted(_OVERRIDE_FIELDS)} and embed.<field>")
+    if embed:
+        top["embed"] = dataclasses.replace(spec.embed, **embed)
+    return dataclasses.replace(spec, **top) if top else spec

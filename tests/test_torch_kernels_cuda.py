@@ -13,7 +13,11 @@ import pytest
 import torch
 
 from repro_torch.kernels.ds_estep import ds_estep
-from repro_torch.kernels.ref import ds_estep_ref, entropy_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.linear_scan import linear_scan
+from repro_torch.kernels.ref import (
+    attention_ref, ds_estep_ref, entropy_ref, linear_scan_ref,
+)
 from repro_torch.kernels.uncertainty import entropy_scores
 
 
@@ -146,3 +150,171 @@ def test_entropy_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         entropy_scores(x.t())
     assert entropy_scores(x[:0]).shape == (0,)
+
+
+def _tol(dtype):
+    """tests/test_kernels.py's tolerance: 2e-2 in bfloat16 (the output is
+    rounded to bfloat16 by both), 2e-5 in float32 (the kernel sums q.k and
+    p v in another order than the plain version's matmuls)."""
+    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+
+
+def _randn(shape, seed, dev, dtype=torch.float32):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+# (B, Hq, Hkv, Sq, Sk, D) x (causal, window) x dtype: the grid of
+# tests/test_kernels.py::test_flash_attention (MQA and cross-length, a
+# ragged 200, GQA group 3; non-causal only at Sq == Sk)
+FLASH_GRID = [
+    (shape, cw, dt)
+    for shape in [(2, 4, 2, 256, 256, 64), (1, 8, 8, 384, 384, 128),
+                  (2, 4, 1, 128, 512, 64), (1, 2, 2, 200, 200, 64),
+                  (1, 6, 2, 256, 256, 128)]
+    for cw in [(True, 0), (False, 0), (True, 96)]
+    for dt in (torch.float32, torch.bfloat16)
+    if cw[0] or shape[3] == shape[4]]
+
+
+def _check_flash(B, Hq, Hkv, Sq, Sk, D, causal, window, dtype, seed,
+                 heads_first=True, atol=None):
+    """The wrapper takes (B, S, H, D). ``heads_first``: the operands are
+    made (B, H, S, D), as the reference's grid is, and passed as their
+    ``transpose(1, 2)`` views (read by stride); else made (B, S, H, D)."""
+    dev = _card()
+    t = lambda x: x.transpose(1, 2)
+    if heads_first:
+        mk = lambda shape, sd: t(_randn(shape, sd, dev, dtype))
+        shapes = ((B, Hq, Sq, D), (B, Hkv, Sk, D))
+    else:
+        mk = lambda shape, sd: _randn(shape, sd, dev, dtype)
+        shapes = ((B, Sq, Hq, D), (B, Sk, Hkv, D))
+    q = mk(shapes[0], seed)
+    k = mk(shapes[1], seed + 1)
+    v = mk(shapes[1], seed + 2)
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert o.shape == q.shape and o.dtype == dtype
+    want = t(attention_ref(t(q), t(k), t(v), causal=causal, window=window))
+    tol = _tol(dtype) if atol is None else atol
+    torch.testing.assert_close(o.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(o, flash_attention(q, k, v, causal=causal,
+                                          window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cw,dtype", FLASH_GRID)
+def test_flash_attention_kernel_matches_plain(shape, cw, dtype):
+    _check_flash(*shape, *cw, dtype, seed=sum(shape))
+
+
+# the model's shapes in its (B, S, H, D) layout: the encoder's full-width
+# micro-batch (64 tasks x 48 tokens, 10 q heads over 1 kv head, D = 256,
+# window 2048), recurrentgemma-2b's window binding at length 4096, and a
+# head dim that is not a multiple of 16 with ragged lengths
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window", [
+    (64, 10, 1, 48, 256, 2048),
+    (1, 10, 1, 4096, 256, 2048),
+    (2, 4, 2, 77, 80, 0),
+])
+def test_flash_attention_kernel_model_layout(B, Hq, Hkv, S, D, window):
+    _check_flash(B, Hq, Hkv, S, S, D, True, window, torch.bfloat16,
+                 seed=S + D, heads_first=False)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_rejects_bad_inputs():
+    dev = _card()
+    q = _randn((1, 2, 8, 16), 0, dev)        # (B, S, H, D)
+    with pytest.raises(TypeError):
+        flash_attention(q, q.double(), q)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :1].transpose(2, 3), q[:, :1].transpose(2, 3))
+    with pytest.raises(ValueError):
+        big = _randn((1, 1, 4, 288), 1, dev)
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError):
+        flash_attention(q, _randn((1, 3, 3, 16), 2, dev),   # 8 % 3 heads
+                        _randn((1, 3, 3, 16), 3, dev))
+
+
+# (B, S, D) of tests/test_kernels.py::test_linear_scan (tolerance 20x its
+# tol, for its associative scan), the encoder's rglru shape with h0 and a
+# long sequence at the model's width
+SCAN_SHAPES = [(1, 64, 64), (3, 300, 150), (8, 256, 128), (2, 1000, 33),
+               (64, 48, 2560), (2, 4096, 2560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D", SCAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_scan_kernel_matches_plain(B, S, D, dtype):
+    dev = _card()
+    a = torch.sigmoid(_randn((B, S, D), B * S, dev)).to(dtype)
+    b = _randn((B, S, D), B * S + 1, dev, dtype)
+    h0 = _randn((B, D), B * S + 2, dev, dtype)
+    for init in (h0, None):
+        before = linear_scan.launches
+        h = linear_scan(a, b, init)
+        torch.cuda.synchronize()
+        assert linear_scan.launches == before + 1
+        want = linear_scan_ref(a, b, init)
+        assert h.dtype == dtype and h.shape == (B, S, D)
+        tol = 20 * _tol(dtype)
+        torch.testing.assert_close(h.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        # one rounded multiply and one rounded add per step, in order, in
+        # both: equal bit for bit by design
+        assert torch.equal(h, want)
+
+
+@pytest.mark.cuda
+def test_linear_scan_wrapper_rejects_bad_inputs():
+    dev = _card()
+    a = _randn((2, 8, 4), 0, dev)
+    with pytest.raises(TypeError):
+        linear_scan(a, a.double())
+    with pytest.raises(ValueError):
+        linear_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError):
+        linear_scan(a, a, _randn((3, 4), 1, dev))
+
+
+def test_lm_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    """The LM path's entry points default to the card and raise without
+    one; ``device="cpu"`` runs the plain versions. Runs everywhere (the
+    card is hidden)."""
+    from repro_torch.embed import bank, encoder
+    from repro_torch.embed.config import EmbedConfig
+    from repro_torch.scenarios import get_learning_spec, run_learning
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ov = {"features.kind": "lm", "embed.model": "recurrentgemma-2b",
+          "embed.seq_len": 8, "embed.batch_size": 4}
+    ec = EmbedConfig(model="recurrentgemma-2b", seq_len=8, batch_size=4)
+    spec = get_learning_spec("hybrid_small", ov)
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    lengths = torch.full((2,), 8, dtype=torch.int32)
+    calls = [
+        lambda d: encoder.model_params(ec, **d),
+        lambda d: encoder.projection(ec, 8, **d),
+        lambda d: encoder.encode(ec, tokens, lengths, 8, **d),
+        lambda d: bank.make_dataset(spec, 6, 2, **d),
+        lambda d: bank.embedding_bank(ec, 2, 8, 3.0, **d),
+        lambda d: run_learning("hybrid_small", overrides=ov, n_train=6,
+                               n_test=2, rounds=1, n_reps=1, fit_steps=2,
+                               **d),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call({})
+    params = encoder.model_params(ec, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert encoder.encode(ec, tokens, lengths, 8, device="cpu").shape == (2, 8)
+    X, y, Xt, yt = bank.make_dataset(spec, 6, 2, device="cpu")
+    assert X.shape == (6, 8) and Xt.shape == (2, 8)
