@@ -47,7 +47,23 @@ drives the port's main path on the card:
      versions' forward on the card; a reduced model on the card against
      the port on the CPU; tasks embedded per second, replications per
      second, the encoder's device idle share, and the kernels' times
-     beside their bounds, their plain versions and (flash) SDPA.
+     beside their bounds, their plain versions and (flash) SDPA;
+ 11. the ``streaming_xent`` forward and backward kernels against their
+     plain versions: the reference test's shapes in float32 and bfloat16,
+     the training shape (2048, 256000) and ignored rows; loss, lse and
+     dlogits, and their times beside the bounds, the plain versions and
+     ``F.cross_entropy``;
+ 12. the ``flash_attention`` and ``linear_scan`` backward kernels against
+     their plain backward versions at phases 8-9's shapes and the training
+     shapes (4 x 512 tokens), with times beside SDPA's backward and the
+     bounds, and a check that gradients reach every input on the card;
+ 13. training the full-width recurrentgemma-2b (2.89 B parameters from a
+     seed) for 5 steps on a fixed 4 x 512-token batch with remat and AdamW
+     through ``Trainer.run``, twice, bit for bit; the loss falls, the
+     launch counts per step are as the model's layers give them; steps
+     and tokens per second, peak memory, a profiled step; a reduced model
+     on the card against the CPU; a crash, restore and continue at reduced
+     size equal to a straight run.
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -56,8 +72,11 @@ torch, numpy and the port (``src/repro_torch``), and needs no network.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import importlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -70,9 +89,10 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 H100_F32_FLOPS = 67e12              # H100 SXM float32, no tensor cores
 H100_BF16_FLOPS = 989e12            # H100 SXM bfloat16 tensor cores, dense
-# phase 10: the full-width model (a rehearsal on a small machine sets it
-# to True)
+# phases 10 and 13: the full-width model (a rehearsal on a small machine
+# sets these to True)
 EMBED_REDUCED = False
+TRAIN_REDUCED = False
 
 
 def fail(msg: str):
@@ -110,6 +130,18 @@ def device_profile(fn):
     busy_us, by_name)``: the host wall time (profiler on), the number of
     device kernels, their summed device time and that time per kernel
     name. ``kernels`` is 0 where the profiler sees no device activity."""
+    wall, events = kernel_events(fn)
+    by_name = {n: sum(t) for n, t in events.items()}
+    return (wall, sum(len(t) for t in events.values()),
+            sum(by_name.values()), by_name)
+
+
+def kernel_events(fn):
+    """Run ``fn()`` under ``torch.profiler`` and return ``(wall_s, {kernel
+    name: [device time of each recorded launch in us]})``, the host wall
+    time with the profiler on. A window of long kernels can come back with
+    fewer events than launches (seen on an H100), so a kernel's time is the
+    mean over the events recorded, not the sum over the launches made."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -118,12 +150,20 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return wall, len(kern), sum(by_name.values()), by_name
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return wall, out
+
+
+def mean_us(events, match):
+    """The summed mean device time of the kernels whose name holds
+    ``match`` (one launch of a wrapper may run several), and the number of
+    events seen."""
+    hits = {n: t for n, t in events.items() if match in n}
+    return (sum(sum(t) / len(t) for t in hits.values()),
+            sum(len(t) for t in hits.values()))
 
 
 def estep_bound_ms(B, R, C, T, V):
@@ -182,6 +222,54 @@ def scan_bound_ms(B, S, D, elt, h0):
                                        else "operations"), nbytes
 
 
+def xent_bound_ms(N, V, elt, backward):
+    """Least time for the cross entropy of N rows of V logits on an H100
+    SXM. Forward: the logits and the targets read once, loss and lse
+    written once; backward: the logits, targets, lse and loss gradient read
+    once, dlogits written once; against ~4 float32 operations per logit
+    (subtract, exp, add, max or multiply) at the float32 rate."""
+    nbytes = N * V * elt * (2 if backward else 1) + 12 * N
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 4 * N * V / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def flash_bwd_bound_ms(B, Hq, Hkv, Sq, Sk, D, elt, causal, window):
+    """Least time for attention's backward on an H100 SXM: q, o, do, k, v
+    and lse read once, dq, dk and dv written once at the memory rate, or
+    five products over the (q, k) pairs the masks keep (s = q k^T
+    recomputed from lse, dp = do v^T, dv = p^T do, dq = ds k, dk = ds^T q;
+    D multiply-adds each) at the bfloat16 tensor-core rate, whichever is
+    larger."""
+    nbytes = (elt * (4 * B * Hq * Sq * D + 4 * B * Hkv * Sk * D)
+              + 4 * B * Hq * Sq)
+    q = np.arange(Sq)[:, None]
+    k = np.arange(Sk)[None, :]
+    keep = np.ones((Sq, Sk), bool)
+    if causal:
+        keep &= k <= q
+    if window > 0:
+        keep &= q - k < window
+    flops = 10 * D * int(keep.sum()) * B * Hq
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / H100_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def scan_bwd_bound_ms(B, S, D, elt):
+    """Least time for the recurrence's backward on an H100 SXM: a, h and g
+    read once, da and db written once, h0 read and dh0 written once, at the
+    memory rate, or its 3 float32 operations per element at the float32
+    rate."""
+    nbytes = 5 * B * S * D * elt + 8 * B * D
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 3 * B * S * D / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
 def make_estep_inputs(gen, B, W, C, T, V, dev):
     R = W * C + 1
     shape_r = (R, C) if B is None else (B, R, C)
@@ -225,6 +313,18 @@ def main():
     from repro_torch.models import model as mmodel
     from repro_torch.models.model import compute_params, forward
     from repro_torch.models.params import leaves, tree_map
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.corpus import CorpusConfig, make_batch
+    from repro_torch.kernels.ref import (
+        attention_bwd_ref, linear_scan_bwd_ref, xent_bwd_ref, xent_ref,
+    )
+    from repro_torch.kernels.xent import streaming_xent
+    from repro_torch.models.stepfn import make_loss_fn
+    from repro_torch.training.checkpoint import _flatten as ckpt_flatten
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    kxent = importlib.import_module("repro_torch.kernels.xent")
+    kflash = importlib.import_module("repro_torch.kernels.flash_attention")
+    kscan = importlib.import_module("repro_torch.kernels.linear_scan")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1230,6 +1330,502 @@ def main():
     else:
         say("[profile] encoder: device time not measured (no device events)")
 
+    # ---- phase 11: the streaming_xent kernels against their plain versions
+    # free what the earlier phases hold on the card: the encoder's cached
+    # full-width parameters (11.6 GB) and the kept kernel inputs
+    del params10, cp10, gp0, xb, flash_inputs_kept, scan_inputs_kept
+    del ent_inputs, hk, hp
+    eenc._params.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # tolerances: loss and lse read the same values as the plain version
+    # and sum in float32 in other orders (2e-4 absolute, 1e-5 relative);
+    # dlogits: the kernel's exp differs from torch's in the last bits (1e-6
+    # absolute, 1e-4 relative), and a bfloat16 result can round to the
+    # other neighbour (8e-3 relative, one ulp)
+    XENT_MAIN = "training (2048, 256000) f32"
+    xent_cases = [(f"test ({N}, {V}) {str(dt)[6:]}", N, V, dt)
+                  for N, V in ((10, 100), (64, 50304), (33, 777))
+                  for dt in (f32, bf16)]
+    xent_cases += [(XENT_MAIN, 2048, 256000, f32),
+                   ("ignored rows (257, 1001) f32", 257, 1001, f32)]
+    xent_errs, xent_kept = {}, None
+    for label, N, V, dt in xent_cases:
+        x = (torch.randn((N, V), generator=gen, device=dev) * 3).to(dt)
+        t = torch.randint(0, V, (N,), generator=gen, device=dev)
+        g = torch.randn((N,), generator=gen, device=dev)
+        ign = torch.zeros((N,), dtype=torch.bool, device=dev)
+        if label.startswith("ignored"):
+            # softmax_xent clamps an ignored target (-1) to 0 and masks its
+            # row: its gradient is 0
+            ign = torch.rand((N,), generator=gen, device=dev) < 0.3
+            t = torch.where(ign, torch.zeros_like(t), t)
+            g = torch.where(ign, torch.zeros_like(g), g)
+        t32 = t.to(torch.int32)
+        loss, lse = kxent._fwd_kernel(x, t32)
+        dx = kxent._bwd_kernel(x, t32, lse, g)
+        torch.cuda.synchronize()
+        want_lse = torch.logsumexp(x.float(), -1)
+        want_dx = xent_bwd_ref(x, t, want_lse, g)
+        e_loss = (loss - xent_ref(x, t)).abs().max().item()
+        e_lse = (lse - want_lse).abs().max().item()
+        e_dx = (dx.float() - want_dx.float()).abs().max().item()
+        rt = 8e-3 if dt == bf16 else 1e-4
+        ok = (bool(torch.isfinite(loss).all()) and dx.dtype == dt
+              and bool(torch.allclose(loss, xent_ref(x, t), atol=2e-4,
+                                      rtol=1e-5))
+              and bool(torch.allclose(lse, want_lse, atol=2e-4, rtol=1e-5))
+              and bool(torch.allclose(dx.float(), want_dx.float(),
+                                      atol=1e-6, rtol=rt))
+              and bool((dx[ign] == 0).all()))
+        say(f"[xent] {label}: max|dloss|={e_loss:.3g} max|dlse|={e_lse:.3g} "
+            f"(atol 2e-4, rtol 1e-5), max|ddlogits|={e_dx:.3g} (atol 1e-6, "
+            f"rtol {rt}){'; ignored rows: dlogits 0' if ign.any() else ''}")
+        check(ok, f"streaming_xent kernels disagree with their plain "
+              f"versions at {label}")
+        again = kxent._fwd_kernel(x, t32)
+        check(torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+              and torch.equal(dx, kxent._bwd_kernel(x, t32, lse, g)),
+              f"streaming_xent is not repeatable at {label}")
+        xent_errs[label] = (e_loss, e_dx)
+        if label == XENT_MAIN:
+            xent_kept = (x, t, t32, g, lse)
+        del x, dx, want_dx
+    x, t, t32, g, lse = xent_kept
+    N, V = x.shape
+    reps = 10
+    xent_t = {}
+    ms_f = cuda_ms(lambda: kxent._fwd_kernel(x, t32), reps)
+    ms_b = cuda_ms(lambda: kxent._bwd_kernel(x, t32, lse, g), reps)
+    plain_f = cuda_ms(lambda: xent_ref(x, t), reps)
+    plain_b = cuda_ms(lambda: xent_bwd_ref(x, t, lse, g), reps)
+    F = torch.nn.functional
+    lib_f = cuda_ms(lambda: F.cross_entropy(x, t, reduction="none"), reps)
+    xr = x.detach().requires_grad_(True)
+    lib_loss = F.cross_entropy(xr, t, reduction="none")
+    lib_b = cuda_ms(lambda: torch.autograd.grad(lib_loss, xr, g,
+                                                retain_graph=True), reps)
+    del lib_loss, xr
+
+    def many_xent():
+        for _ in range(reps):
+            kxent._bwd_kernel(x, t32, *kxent._fwd_kernel(x, t32)[1:], g)
+    _, events = kernel_events(many_xent)
+    for direction, ms, plain, lib in (("fwd", ms_f, plain_f, lib_f),
+                                      ("bwd", ms_b, plain_b, lib_b)):
+        dev_us, n_ev = mean_us(events, f"xent_{direction}")
+        bound, by, nbytes = xent_bound_ms(N, V, 4, direction == "bwd")
+        xent_t[direction] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                 bound_ms=bound, bound_by=by, dev_us=dev_us)
+        dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}"
+                   f"% of bound; {n_ev} of {reps} launches in the profile)"
+                   if dev_us > 0 else "device time not measured (no device "
+                   "events in the profile)")
+        say(f"[time] streaming_xent {direction} {XENT_MAIN}: per call "
+            f"{ms * 1e3:.2f} us, {dev_txt}, plain per call "
+            f"{plain * 1e3:.2f} us, F.cross_entropy(reduction='none') "
+            f"{'forward' if direction == 'fwd' else 'backward (autograd)'} "
+            f"per call {lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}, "
+            f"{nbytes} B); {card}")
+    del x, t, t32, g, lse, xent_kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: the backward kernels against their plain backward ----
+    # flash: dq, dk, dv against attention_bwd_ref (float32, P materialized)
+    # on the kernel forward's o, at the reference tests' 2e-2 in bfloat16
+    # (both round float32 sums to bfloat16) and 1e-4 in float32 (5x the
+    # forward's 2e-5: dk and dv sum G * Sq terms, ds cancels p (dp -
+    # delta)); the forward's o is also held equal with and without lse
+    def fbwd_tol(dt):
+        return 2e-2 if dt == bf16 else 1e-4
+
+    FB_MAIN = "training (4, 512, 10/1, 256) bf16"
+    fb_cases = []
+    for shape in [(2, 4, 2, 256, 256, 64), (1, 8, 8, 384, 384, 128),
+                  (2, 4, 1, 128, 512, 64), (1, 2, 2, 200, 200, 64),
+                  (1, 6, 2, 256, 256, 128)]:
+        for causal, window in [(True, 0), (False, 0), (True, 96)]:
+            if not causal and shape[3] != shape[4]:
+                continue
+            for dt in (f32, bf16):
+                fb_cases.append((f"grid {shape} c={int(causal)} w={window} "
+                                 f"{str(dt)[6:]}", shape, causal, window, dt))
+    fb_cases += [
+        ("encoder (64, 48, 10/1, 256) bf16", FLASH_MAIN, True, 2048, bf16),
+        ("window at length (1, 4096, 10/1, 256) bf16",
+         (1, 10, 1, 4096, 4096, 256), True, 2048, bf16),
+        ("ragged (2, 77, 4/2, 80) bf16", (2, 4, 2, 77, 77, 80), True, 0,
+         bf16),
+        ("short window (1, 300, 10/1, 256) f32", (1, 10, 1, 300, 300, 256),
+         True, 64, f32),
+        (FB_MAIN, (4, 10, 1, 512, 512, 256), True, 2048, bf16)]
+    fb_errs, fb_kept = {}, None
+    for label, shape, causal, window, dt in fb_cases:
+        B, Hq, Hkv, Sq, Sk, D = shape
+        q, k, v = flash_inputs(*shape, dt, "bshd")
+        do = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(dt)
+        o, lse = kflash._fwd_kernel(q, k, v, causal, window, True)
+        dq, dk, dv = kflash._bwd_kernel(q, k, v, o, lse, do, causal, window)
+        torch.cuda.synchronize()
+        want = attention_bwd_ref(tsp(q), tsp(k), tsp(v), tsp(o), tsp(do),
+                                 causal=causal, window=window)
+        tl = fbwd_tol(dt)
+        errs_ = []
+        ok = torch.equal(o, kflash._fwd_kernel(q, k, v, causal, window,
+                                               False)[0])
+        for got, w in zip((dq, dk, dv), want):
+            w = tsp(w)
+            errs_.append((got.float() - w.float()).abs().max().item())
+            ok = ok and (got.shape == w.shape and got.dtype == dt
+                         and bool(torch.isfinite(got).all())
+                         and bool(torch.allclose(got.float(), w.float(),
+                                                 atol=tl, rtol=tl)))
+        say(f"[flash-bwd] {label}: max|ddq|={errs_[0]:.3g} "
+            f"max|ddk|={errs_[1]:.3g} max|ddv|={errs_[2]:.3g} (atol/rtol "
+            f"{tl}); o equal with and without lse")
+        check(ok, f"flash_attention backward disagrees with its plain "
+              f"version at {label}")
+        again = kflash._bwd_kernel(q, k, v, o, lse, do, causal, window)
+        check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+              f"flash_attention backward is not repeatable at {label}")
+        fb_errs[label] = max(errs_)
+        if label == FB_MAIN:
+            fb_kept = (q, k, v, o, lse, do)
+        del want, again
+    # scan: da, db, dh0 against linear_scan_bwd_ref, bit for bit
+    SB_MAIN = "training rglru (4, 512, 2560) f32"
+    sb_cases = [(f"grid ({B}, {S}, {D}) {str(dt)[6:]}", B, S, D, dt)
+                for B, S, D in ((1, 64, 64), (3, 300, 150), (8, 256, 128),
+                                (2, 1000, 33))
+                for dt in (f32, bf16)]
+    sb_cases += [("encoder rglru (64, 48, 2560) f32", *SCAN_MAIN, f32),
+                 ("long (2, 4096, 2560) f32", 2, 4096, 2560, f32),
+                 (SB_MAIN, 4, 512, 2560, f32)]
+    sb_kept = None
+    for label, B, S, D, dt in sb_cases:
+        a = torch.sigmoid(torch.randn((B, S, D), generator=gen,
+                                      device=dev)).to(dt)
+        b = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
+        h0 = torch.randn((B, D), generator=gen, device=dev)
+        g = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
+        for init in (h0, None):
+            h = kscan._fwd_kernel(a, b, init)
+            da, db, dh0 = kscan._bwd_kernel(a, h, init, g, init is not None)
+            torch.cuda.synchronize()
+            wa, wb, wh0 = linear_scan_bwd_ref(a, h, g, init)
+            same = (torch.equal(da, wa) and torch.equal(db, wb)
+                    and (init is None or torch.equal(dh0, wh0)))
+            err = max((da.float() - wa.float()).abs().max().item(),
+                      (db.float() - wb.float()).abs().max().item())
+            say(f"[scan-bwd] {label} h0={'yes' if init is not None else 'no'}"
+                f": max|dda|, |ddb|={err:.3g}, "
+                f"{'bit-equal' if same else 'NOT bit-equal'}")
+            check(same and bool(torch.isfinite(da.float()).all()),
+                  f"linear_scan backward disagrees with its plain version at "
+                  f"{label}")
+        if label == SB_MAIN:
+            sb_kept = (a, b, h0, g, kscan._fwd_kernel(a, b, h0))
+            sb_err_main = err
+
+    # timings at the training shapes
+    q, k, v, o, lse, do = fb_kept
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    reps = 10
+    ms = cuda_ms(lambda: kflash._bwd_kernel(q, k, v, o, lse, do, True,
+                                            2048), reps)
+    plain = cuda_ms(lambda: attention_bwd_ref(tsp(q), tsp(k), tsp(v),
+                                              tsp(o), tsp(do), causal=True,
+                                              window=2048), reps)
+    qr, kr, vr = (tsp(z).detach().requires_grad_(True) for z in (q, k, v))
+    lib_o = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
+    lib = cuda_ms(lambda: torch.autograd.grad(lib_o, (qr, kr, vr), tsp(do),
+                                              retain_graph=True), reps)
+    del lib_o, qr, kr, vr
+
+    def many_fb():
+        for _ in range(reps):
+            kflash._bwd_kernel(q, k, v, o, lse, do, True, 2048)
+    _, events = kernel_events(many_fb)
+    dev_us, n_ev = mean_us(events, "flash_bwd")
+    parts = {part: mean_us(events, part)
+             for part in ("flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")}
+    bound, by, nbytes = flash_bwd_bound_ms(B, Hq, Hkv, Sq, Sq, D, 2, True,
+                                           2048)
+    fb_t = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by=by, dev_us=dev_us)
+    dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}% "
+               f"of bound; " + ", ".join(f"{n} {u:.1f} us ({c} events)"
+                                         for n, (u, c) in parts.items())
+               + f" of {reps} launches)" if dev_us > 0 else "device time not "
+               "measured (no device events in the profile)")
+    say(f"[time] flash_attention backward {FB_MAIN}: per call "
+        f"{ms * 1e3:.2f} us, {dev_txt}, plain per call {plain * 1e3:.2f} us, "
+        f"SDPA backward (autograd) per call {lib * 1e3:.2f} us, bound "
+        f"{bound * 1e3:.3f} us ({by}, {nbytes} B); {card}")
+    del fb_kept, q, k, v, o, lse, do
+    a, b, h0, g, h = sb_kept
+    B, S, D = a.shape
+    ms = cuda_ms(lambda: kscan._bwd_kernel(a, h, h0, g, True), reps)
+    plain = cuda_ms(lambda: linear_scan_bwd_ref(a, h, g, h0), 2)
+
+    def many_sb():
+        for _ in range(reps):
+            kscan._bwd_kernel(a, h, h0, g, True)
+    dev_us, n_ev = mean_us(kernel_events(many_sb)[1], "linear_scan_bwd")
+    bound, by, nbytes = scan_bwd_bound_ms(B, S, D, 4)
+    sb_t = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                dev_us=dev_us)
+    dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}% "
+               f"of bound; {n_ev} of {reps} launches in the profile)"
+               if dev_us > 0 else "device time not measured (no device "
+               "events in the profile)")
+    say(f"[time] linear_scan backward {SB_MAIN} with h0: per call "
+        f"{ms * 1e3:.2f} us, {dev_txt}, plain per call {plain * 1e3:.2f} us, "
+        f"bound {bound * 1e3:.3f} us ({by}, {nbytes} B); {card}")
+    del sb_kept, a, b, h0, g, h
+
+    # gradients reach every input through the public wrappers on the card
+    mk = lambda shape, dt: torch.randn(shape, generator=gen, device=dev).to(
+        dt).requires_grad_(True)
+    q, k, v = mk((2, 48, 10, 256), bf16), mk((2, 48, 1, 256), bf16), \
+        mk((2, 48, 1, 256), bf16)
+    o = flash_attention(q, k, v, causal=True, window=2048)
+    a = torch.sigmoid(torch.randn((2, 48, 64), generator=gen, device=dev)
+                      ).requires_grad_(True)
+    b, h0 = mk((2, 48, 64), f32), mk((2, 64), f32)
+    hs = linear_scan(a, b, h0)
+    lg = mk((8, 1000), f32)
+    xl = streaming_xent(lg, torch.arange(8, device=dev))
+    check(all(z.grad_fn is not None for z in (o, hs, xl)),
+          "a kernel's output on the card has no grad_fn")
+    (o.float().square().sum() + hs.square().sum() + xl.sum()).backward()
+    flow = {n: z.grad for n, z in (("q", q), ("k", k), ("v", v), ("a", a),
+                                   ("b", b), ("h0", h0), ("logits", lg))}
+    check(all(gz is not None and bool(torch.isfinite(gz.float()).all())
+              and gz.abs().max().item() > 0 for gz in flow.values()),
+          f"a gradient does not reach every input on the card: "
+          f"{[n for n, gz in flow.items() if gz is None]}")
+    say(f"[grad] on the card: flash, scan and xent outputs carry a grad_fn; "
+        f"a backward reaches {', '.join(flow)} with finite, nonzero "
+        f"gradients")
+    del q, k, v, o, a, b, h0, hs, lg, xl, flow
+
+    # ---- phase 13: training recurrentgemma-2b at full width --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg13 = get_config("recurrentgemma-2b")
+    if TRAIN_REDUCED:
+        cfg13 = reduced(cfg13)
+    corpus13 = CorpusConfig(vocab_size=cfg13.vocab_size, seq_len=512,
+                            global_batch=4)
+    STEPS13 = 5
+    tc13 = TrainConfig(steps=STEPS13, lr=3e-4, warmup=1, log_every=1,
+                       seed=0)
+    # one fixed batch (the corpus's first), so that the loss must fall
+    batch13 = make_batch(corpus13, 0)
+    tokens13 = corpus13.global_batch * corpus13.seq_len
+    group, n_full, rem = cfg13.layer_groups()
+    n_attn, n_rglru = (group * n_full + rem).count("attn"), \
+        (group * n_full + rem).count("rglru")
+    # remat recomputes each stacked group's forward in the backward (the
+    # reference's jax.checkpoint(group_body)); the unrolled tail is not
+    # recomputed
+    want13 = {"streaming_xent": (1, 1),
+              "flash_attention": (n_attn + group.count("attn") * n_full,
+                                  n_attn),
+              "linear_scan": (n_rglru + group.count("rglru") * n_full,
+                              n_rglru)}
+    kern13 = {"streaming_xent": streaming_xent,
+              "flash_attention": flash_attention, "linear_scan": linear_scan}
+
+    class FixedLoader:
+        """The same batch every step; records when each step asks."""
+        def __init__(self):
+            self.times = []
+
+        def __next__(self):
+            self.times.append(time.perf_counter())
+            return batch13
+
+    def train_once(logs):
+        for fn in kern13.values():
+            fn.launches = fn.bwd_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loader = FixedLoader()
+        trainer = Trainer(cfg13, corpus13, tc13, log=logs.append,
+                          device="cuda")
+        t0 = time.perf_counter()
+        state = trainer.run(loader=loader)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = {n: (fn.launches, fn.bwd_launches)
+                    for n, fn in kern13.items()}
+        peak = torch.cuda.max_memory_allocated()
+        steps = np.diff(loader.times + [t_end])
+        return dict(trainer=trainer, state=state, launches=launches,
+                    peak=peak, init_s=loader.times[0] - t0, steps=steps,
+                    losses=[m["loss"] for _, m in trainer.metrics_log],
+                    gnorms=[m["grad_norm"] for _, m in trainer.metrics_log])
+
+    def digest(params):
+        """An exact digest of the parameters' bits: per leaf, the int32
+        view weighted by position, summed in (wrapping) int64, in chunks."""
+        out = []
+        for leaf in leaves(params, torch.is_tensor):
+            flat = leaf.detach().reshape(-1).view(torch.int32)
+            acc = 0
+            for i0 in range(0, flat.numel(), 1 << 26):
+                bits = flat[i0:i0 + (1 << 26)].to(torch.int64)
+                w = (torch.arange(i0, i0 + bits.numel(), device=bits.device)
+                     % 1000003 + 1)
+                acc += int((bits * w).sum())
+            out.append(acc)
+        return out
+
+    logs13 = []
+    r1 = train_once(logs13)
+    for line in logs13:
+        say(line)
+    per_step = STEPS13
+    for n, want in want13.items():
+        got = r1["launches"][n]
+        check(got == (want[0] * per_step, want[1] * per_step),
+              f"training made {got} (forward, backward) {n} launches in "
+              f"{per_step} steps, expected "
+              f"{(want[0] * per_step, want[1] * per_step)}")
+    check(all(math.isfinite(x) for x in r1["losses"] + r1["gnorms"]),
+          f"training losses or grad norms not finite: {r1['losses']}, "
+          f"{r1['gnorms']}")
+    loss_fn13 = make_loss_fn(cfg13, remat=False)
+    b13 = {k_: torch.as_tensor(v_, device=dev) for k_, v_ in batch13.items()}
+    with torch.no_grad(), full_fp32():
+        final_loss = float(loss_fn13(r1["state"]["params"], b13)[1]["loss"])
+    check(final_loss < r1["losses"][0], f"the loss on the fixed batch did not "
+          f"fall: {r1['losses'][0]} -> {final_loss}")
+    d1 = digest(r1["state"]["params"])
+    # where a step's time goes: one more step under the profiler
+    step_fn = r1["trainer"].step_fn
+    state13 = r1["state"]
+    for fn in kern13.values():
+        fn.launches = fn.bwd_launches = 0
+    wall, ev13 = kernel_events(lambda: step_fn(state13, b13))
+    n_k = sum(len(v) for v in ev13.values())
+    by_name = {n: sum(v) for n, v in ev13.items()}
+    busy = sum(by_name.values())
+    # the profile's events of the port's kernels against the launches the
+    # wrappers counted in that step
+    seen13 = {n: mean_us(ev13, n)[1]
+              for n in ("xent_fwd", "xent_bwd", "flash_fwd", "flash_bwd_dq",
+                        "flash_bwd_dkdv", "linear_scan_fwd",
+                        "linear_scan_bwd")}
+    made13 = {"xent_fwd": streaming_xent.launches,
+              "xent_bwd": streaming_xent.bwd_launches,
+              "flash_fwd": flash_attention.launches,
+              "flash_bwd_dq": flash_attention.bwd_launches,
+              "flash_bwd_dkdv": flash_attention.bwd_launches,
+              "linear_scan_fwd": linear_scan.launches,
+              "linear_scan_bwd": linear_scan.bwd_launches}
+    n_params = sum(t_.numel() for t_ in leaves(state13["params"],
+                                               torch.is_tensor))
+    del r1["state"], r1["trainer"], state13, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    r2 = train_once([])
+    check(r2["losses"] == r1["losses"] and r2["gnorms"] == r1["gnorms"]
+          and digest(r2["state"]["params"]) == d1,
+          "two training runs from the same seed differ")
+    del r2
+    gc.collect()
+    torch.cuda.empty_cache()
+    sps = 1.0 / float(np.mean(r1["steps"][1:]))
+    say(f"[train] {cfg13.name}{' (reduced)' if TRAIN_REDUCED else ''}: "
+        f"{n_params} parameters, {cfg13.n_layers} layers, d_model "
+        f"{cfg13.d_model}, vocab {cfg13.vocab_size}; batch "
+        f"{corpus13.global_batch} x {corpus13.seq_len} tokens (fixed), "
+        f"microbatches 1, remat on, AdamW lr 3e-4; {STEPS13} steps")
+    say(f"[train] losses {', '.join(f'{x:.6f}' for x in r1['losses'])}; "
+        f"after the last step {final_loss:.6f}; grad norms "
+        f"{', '.join(f'{x:.4f}' for x in r1['gnorms'])}; second run from "
+        f"the same seed: losses, grad norms and parameter digest bit-equal")
+    say(f"[train] launches per step (forward, backward): "
+        + ", ".join(f"{n} {tuple(c // per_step for c in r1['launches'][n])}"
+                    for n in kern13)
+        + f" = expected (flash forward {n_attn} + {n_attn} recomputed, scan "
+        f"forward {n_rglru} + {group.count('rglru') * n_full} recomputed: "
+        f"the tail's {rem.count('rglru')} are not)")
+    say(f"[time] training: parameters drawn in {r1['init_s']:.1f} s; step "
+        f"times {', '.join(f'{s_:.3f}' for s_ in r1['steps'])} s -> "
+        f"{sps:.3f} steps/s, {sps * tokens13:.0f} tokens/s (steps 2-"
+        f"{STEPS13}); peak memory {r1['peak'] / 1e9:.2f} GB "
+        f"(max_memory_allocated); {card}")
+    check(r1["peak"] < 80e9, "peak memory above 80 GB")
+    if n_k:
+        step_s = float(np.mean(r1["steps"][1:]))
+        say(f"[profile] one training step: {n_k} kernels, device busy "
+            f"{busy / 1e3:.1f} ms of {step_s * 1e3:.1f} ms wall without the "
+            f"profiler ({wall * 1e3:.1f} ms with it): device idle "
+            f"{(1 - busy / 1e6 / step_s) * 100:.1f}%; {card}")
+        say("[profile] the port's kernels, events in the profile / launches "
+            "counted: " + ", ".join(f"{n} {seen13[n]}/{made13[n]}"
+                                    for n in seen13))
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            say(f"[profile]   {us / 1e3:8.3f} ms/step  {name[:90]}")
+    else:
+        say("[profile] training: device time not measured (no device "
+            "events)")
+    train13 = dict(launches=r1["launches"], per_step=per_step)
+
+    # a reduced model on the card against the port on the CPU: losses of 3
+    # steps, within one bfloat16 ulp of the loss (4e-3 relative: cuBLAS and
+    # the CPU's GEMMs sum in other orders)
+    cfg_r = reduced(get_config("recurrentgemma-2b"))
+    corpus_r = CorpusConfig(vocab_size=cfg_r.vocab_size, seq_len=64,
+                            global_batch=4)
+    tc_r = TrainConfig(steps=3, lr=3e-3, warmup=1, log_every=1, seed=3)
+    lr_ = {}
+    for key, d in (("card", "cuda"), ("cpu", "cpu")):
+        t_r = Trainer(cfg_r, corpus_r, tc_r, log=lambda *a_: None, device=d)
+        t_r.run()
+        lr_[key] = [m["loss"] for _, m in t_r.metrics_log]
+    dl = max(abs(a_ - b_) / b_ for a_, b_ in zip(lr_["card"], lr_["cpu"]))
+    say(f"[train] reduced model, card vs CPU, 3 steps: losses "
+        f"{lr_['card']} vs {lr_['cpu']} (max relative difference {dl:.3g}, "
+        f"limit 4e-3)")
+    check(len(lr_["card"]) == 3 and dl <= 4e-3,
+          "reduced training: card and CPU losses differ")
+    # restart-exact at reduced size on the card: a straight run of 12 steps
+    # against one that crashes at step 7 (checkpoint at 5) and resumes
+    ck = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        def mini(sub):
+            tc = TrainConfig(steps=12, ckpt_dir=str(ck / sub), ckpt_every=5,
+                             ckpt_background=False, log_every=100,
+                             microbatches=2, seed=1)
+            return Trainer(cfg_r, CorpusConfig(vocab_size=cfg_r.vocab_size,
+                                               seq_len=16, global_batch=4,
+                                               seed=1),
+                           tc, log=lambda *a_: None, device="cuda")
+        straight = mini("a").run()
+        try:
+            mini("b").run(fail_at_step=7)
+            check(False, "the injected failure did not happen")
+        except RuntimeError:
+            pass
+        resumed = mini("b").run()
+        fa, fb = ckpt_flatten(straight), ckpt_flatten(resumed)
+        check(fa.keys() == fb.keys() and all(np.array_equal(fa[k_], fb[k_])
+                                             for k_ in fa),
+              "the resumed run differs from the straight run")
+        say(f"[train] restart at reduced size on the card: 12 steps straight "
+            f"= crash at 7, restore step 5, continue to 12: all {len(fa)} "
+            f"state arrays bit-equal")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
     t_main = timings["refresh"]
     e_main = ent_t["learn-hybrid"]
     FLASH_LABEL = "encoder (64, 48, 10/1, 256) bf16"
@@ -1267,6 +1863,40 @@ def main():
         "max_abs_err": scan_errs[SCAN_LABEL],
         "ms": s_main["ms"], "plain_ms": s_main["plain_ms"],
         "bound_ms": s_main["bound_ms"], "bound_by": s_main["bound_by"],
+        "library_ms": None}, {
+        "name": "streaming_xent", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xent.cu",
+        "replaces": "src/repro/kernels/xent.py:53",
+        "launches": train13["launches"]["streaming_xent"][0],
+        "max_abs_err": xent_errs[XENT_MAIN][0],
+        "ms": xent_t["fwd"]["ms"], "plain_ms": xent_t["fwd"]["plain_ms"],
+        "bound_ms": xent_t["fwd"]["bound_ms"],
+        "bound_by": xent_t["fwd"]["bound_by"],
+        "library_ms": xent_t["fwd"]["library_ms"]}, {
+        "name": "streaming_xent_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xent.cu",
+        "replaces": "src/repro/kernels/xent.py:53",
+        "launches": train13["launches"]["streaming_xent"][1],
+        "max_abs_err": xent_errs[XENT_MAIN][1],
+        "ms": xent_t["bwd"]["ms"], "plain_ms": xent_t["bwd"]["plain_ms"],
+        "bound_ms": xent_t["bwd"]["bound_ms"],
+        "bound_by": xent_t["bwd"]["bound_by"],
+        "library_ms": xent_t["bwd"]["library_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "launches": train13["launches"]["flash_attention"][1],
+        "max_abs_err": fb_errs[FB_MAIN],
+        "ms": fb_t["ms"], "plain_ms": fb_t["plain_ms"],
+        "bound_ms": fb_t["bound_ms"], "bound_by": fb_t["bound_by"],
+        "library_ms": fb_t["library_ms"]}, {
+        "name": "linear_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan.py:44",
+        "launches": train13["launches"]["linear_scan"][1],
+        "max_abs_err": sb_err_main,
+        "ms": sb_t["ms"], "plain_ms": sb_t["plain_ms"],
+        "bound_ms": sb_t["bound_ms"], "bound_by": sb_t["bound_by"],
         "library_ms": None}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind,

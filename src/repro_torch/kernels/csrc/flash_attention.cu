@@ -8,7 +8,10 @@
 //   o[q] = sum_k softmax_k(s[q, k]) v[k],  s = scale * q . k
 //
 // with the causal mask (k <= q) and the window mask (q - k < window) by
-// index. A masked score is -1e30, as in the TPU kernel and the plain
+// index. On request it also writes each row's log-sum-exp of the scaled
+// scores, lse = m + log l (B, Hq, Sq) float32, which the backward
+// (csrc/flash_attention_bwd.cu) recomputes p from; o is the same with or
+// without it. A masked score is -1e30, as in the TPU kernel and the plain
 // version (a row with no valid key at all averages v); a key past Sk does
 // not count at all. All arithmetic is float32: operands are widened as they
 // are staged, the online-softmax state (m, l, acc) is float32, and the
@@ -60,6 +63,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                          // (B, Hq, Sq) or null
   int Hq, Hkv, Sq, Sk, D;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
@@ -212,6 +216,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
     const int qp = q0 + tr + 16 * i;
     if (qp >= a.Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && tc == 0)
+      a.lse[(long long)bh * a.Sq + qp] = m[i] + logf(den);
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
       const int d = tc + 16 * j;
@@ -255,19 +261,20 @@ cudaError_t dispatch(const Args& a, int BH, cudaStream_t st) {
 extern "C" {
 
 // q, k, v, o on the current device, element strides (batch, head, sequence)
-// for each, the last dimension contiguous; o takes q's shape and dtype.
+// for each, the last dimension contiguous; o takes q's shape and dtype; lse
+// is null or a contiguous (B, Hq, Sq) float32 output.
 // dtype 0 = float32, 1 = bfloat16 (q, k, v and o alike). 1 <= D <= 256,
 // Hq a multiple of Hkv, B * Hq < 2^31, Sq < 2^22. Launches on `stream` and
 // returns cudaGetLastError() (0 on success); it never synchronises.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int Hq, int Hkv, int Sq, int Sk, int D,
-                        const long long* strides, int causal, int window,
-                        float scale, int dtype, void* stream) {
+                        float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                        int D, const long long* strides, int causal,
+                        int window, float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || D < 1 || D > 256 || Sk <= 0 ||
       (long long)B * Hq > 0x7fffffffLL || Sq > (65535 * kBQ))
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, o, Hq, Hkv, Sq, Sk, D,
+  Args a{q, k, v, o, lse, Hq, Hkv, Sq, Sk, D,
          strides[0], strides[1], strides[2], strides[3], strides[4],
          strides[5], strides[6], strides[7], strides[8], strides[9],
          strides[10], strides[11], causal, window, scale};

@@ -12,6 +12,19 @@
 // in order over t, so the kernel and the plain version (kernels/ref.py::
 // linear_scan_ref, the same loop in PyTorch) agree bit for bit.
 //
+// The backward (the JAX package differentiates its associative scan; the
+// port's forward is this kernel, so its backward is one too) walks t in
+// reverse from the output gradient g and the saved output h:
+//
+//   dh_t = g_t + a_{t+1} * dh_{t+1}   (dh_{S-1} = g_{S-1})
+//   da_t = dh_t * h_{t-1}   (h_{-1} = h0 or 0),   db_t = dh_t,
+//   dh0 = a_0 * dh_0
+//
+// each multiply and add rounded separately, as kernels/ref.py::
+// linear_scan_bwd_ref does in the same order, so the two agree bit for bit.
+// It reads a, h and g once and writes da and db once: bound by memory as
+// the forward, 5 * B * S * D * elt bytes.
+//
 // Design: one thread per (b, d) channel, neighbouring threads on
 // neighbouring d (coalesced loads and stores), blocks of 64 threads along d
 // and one grid row per b; each thread walks S in chunks of 8 steps, loading
@@ -73,6 +86,46 @@ linear_scan_fwd(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+linear_scan_bwd(const T* __restrict__ a, const T* __restrict__ h,
+                const float* __restrict__ h0, const T* __restrict__ g,
+                T* __restrict__ da, T* __restrict__ db,
+                float* __restrict__ dh0, int S, int D) {
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  if (d >= D) return;
+  const long long row = blockIdx.y;
+  const long long base = row * S * D + d;
+  const float hinit = h0 ? h0[row * D + d] : 0.f;
+  float dh = 0.f, a_next = 0.f;
+  for (int t1 = S - 1; t1 >= 0; t1 -= kChunk) {
+    // steps t1, t1 - 1, ..., t1 - kChunk + 1, loaded ahead
+    float gv[kChunk], hv[kChunk], av[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int t = t1 - u;
+      if (t >= 0) {
+        const long long off = base + (long long)t * D;
+        gv[u] = to_f(g[off]);
+        av[u] = to_f(a[off]);
+        hv[u] = t > 0 ? to_f(h[off - D]) : hinit;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int t = t1 - u;
+      if (t >= 0) {
+        dh = t == S - 1 ? gv[u] : __fadd_rn(gv[u], __fmul_rn(a_next, dh));
+        const long long off = base + (long long)t * D;
+        from_f(__fmul_rn(dh, hv[u]), da + off);
+        from_f(dh, db + off);
+        a_next = av[u];
+      }
+    }
+  }
+  if (dh0) dh0[row * D + d] = __fmul_rn(a_next, dh);
+}
+
 }  // namespace
 
 extern "C" {
@@ -97,6 +150,35 @@ int linear_scan_fwd_c(const void* a, const void* b, const float* h0,
         static_cast<const __nv_bfloat16*>(a),
         static_cast<const __nv_bfloat16*>(b), h0,
         static_cast<__nv_bfloat16*>(out), S, D);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The backward: a, h (the forward's output), g, da, db (B, S, D)
+// contiguous, all of one dtype (0 = float32, 1 = bfloat16); h0 (B, D)
+// contiguous float32 or null (then h_{-1} = 0); dh0 (B, D) float32 or null
+// (not written); all on the current device; B < 65536. Launches on `stream`
+// and returns cudaGetLastError() (0 on success); it never synchronises.
+int linear_scan_bwd_c(const void* a, const void* h, const float* h0,
+                      const void* g, void* da, void* db, float* dh0, int B,
+                      int S, int D, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || D <= 0) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)((D + kThreads - 1) / kThreads), (unsigned)B);
+  if (dtype == 0)
+    linear_scan_bwd<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(a), static_cast<const float*>(h), h0,
+        static_cast<const float*>(g), static_cast<float*>(da),
+        static_cast<float*>(db), dh0, S, D);
+  else if (dtype == 1)
+    linear_scan_bwd<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(a),
+        static_cast<const __nv_bfloat16*>(h), h0,
+        static_cast<const __nv_bfloat16*>(g),
+        static_cast<__nv_bfloat16*>(da), static_cast<__nv_bfloat16*>(db),
+        dh0, S, D);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

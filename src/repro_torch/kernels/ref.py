@@ -76,3 +76,77 @@ def linear_scan_ref(a, b, h0=None):
         h = af[:, t] * h + bf[:, t]
         out[:, t] = h
     return out.to(a.dtype)
+
+
+def attention_bwd_ref(q, k, v, o, do, *, causal=True, window=0):
+    """The gradient of :func:`attention_ref` in float32, with P
+    materialized. q, o, do: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D). With
+    s = scale q k^T (masked -1e30), p = softmax(s), delta = rowsum(do o):
+    dv = p^T do, ds = p (do v^T - delta), dq = scale ds k, dk = scale ds^T q,
+    dk and dv summed over each kv head's G query heads. Returns (dq, dk,
+    dv) in q's, k's and v's dtypes."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf, of, gf = q.float(), o.float(), do.float()
+    kk = k.repeat_interleave(G, dim=1).to(torch.float32)
+    vv = v.repeat_interleave(G, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window > 0:
+        mask &= qp - kp < window
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, -1e30)), -1)
+    delta = (gf * of).sum(-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, vv) - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    fold = lambda t: t.reshape(B, Hkv, G, Sk, D).sum(2)
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)
+
+
+def linear_scan_bwd_ref(a, h, g, h0=None):
+    """The gradient of :func:`linear_scan_ref` from its output h and the
+    output gradient g, all (B, S, D), walking t in reverse in float32:
+    dh_t = g_t + a_{t+1} * dh_{t+1} (a multiply, then an add, both
+    rounded), da_t = dh_t * h_{t-1} (h_{-1} = h0 or 0), db_t = dh_t, and
+    dh0 = a_0 * dh_0, as the CUDA kernel computes them. Returns (da, db)
+    in a's dtype and dh0 (B, D) float32."""
+    B, S, D = a.shape
+    af, hf, gf = a.to(torch.float32), h.to(torch.float32), g.to(torch.float32)
+    hinit = (torch.zeros((B, D), dtype=torch.float32, device=a.device)
+             if h0 is None else h0.to(torch.float32))
+    da = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
+    db = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
+    dh = None
+    for t in range(S - 1, -1, -1):
+        dh = gf[:, t] if t == S - 1 else gf[:, t] + af[:, t + 1] * dh
+        da[:, t] = dh * (hf[:, t - 1] if t > 0 else hinit)
+        db[:, t] = dh
+    dh0 = (af[:, 0] * dh if S > 0
+           else torch.zeros((B, D), dtype=torch.float32, device=a.device))
+    return da.to(a.dtype), db.to(a.dtype), dh0
+
+
+def xent_ref(logits, targets):
+    """Per-row cross entropy: (N, V) float32 or bfloat16 logits and (N,)
+    targets -> (N,) float32. The JAX package's oracle: float32 logsumexp
+    minus the target logit."""
+    x = logits.to(torch.float32)
+    lse = torch.logsumexp(x, dim=-1)
+    lt = torch.take_along_dim(x, targets.long()[:, None], dim=1)[:, 0]
+    return lse - lt
+
+
+def xent_bwd_ref(logits, targets, lse, g):
+    """The gradient of :func:`xent_ref`: dlogits_ij = g_i (exp(x_ij -
+    lse_i) - [j = t_i]) in float32, returned in the logits' dtype.
+    lse: (N,) float32 log-sum-exp of the rows; g: (N,) float32."""
+    p = torch.exp(logits.to(torch.float32) - lse[:, None])
+    hit = torch.zeros_like(p).scatter_(1, targets.long()[:, None], 1.0)
+    return (g[:, None] * (p - hit)).to(logits.dtype)

@@ -10,18 +10,24 @@ Float32 master parameters are cast to bfloat16 at use; norms, softmax and
 the recurrence compute in float32 inside.
 
 Ported: the ``attn`` and ``rglru`` blocks and ``forward(mode="train")``
-with ``logits_mode`` hidden, all or last. Not yet: ``prefill`` / ``decode``
-and their caches, the ``mlstm``, ``slstm``, ``moe`` and ``xattn`` blocks
-and the encoder-decoder; they raise ``NotImplementedError``.
+with ``logits_mode`` hidden, all or last, and ``remat`` (each stacked
+group's body under ``torch.utils.checkpoint``, the counterpart of the
+reference's ``jax.checkpoint(group_body)``). Not yet: ``prefill`` /
+``decode`` and their caches, the ``mlstm``, ``slstm``, ``moe`` and
+``xattn`` blocks and the encoder-decoder; they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import full_fp32
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
-from repro_torch.models.params import PSpec, tree_map, tree_stack_template
+from repro_torch.models.params import (
+    PSpec, leaves, tree_map, tree_stack_template, with_leaves,
+)
 
 BLOCK_KINDS = ("attn", "rglru")
 
@@ -92,10 +98,28 @@ def compute_params(params, dtype=torch.bfloat16):
                     else t, params, is_leaf=torch.is_tensor)
 
 
-def forward(params, cfg, tokens, *, mode="train", logits_mode="all"):
+def _unstack(groups, n):
+    """The stacked ``groups`` tree as ``n`` trees, one per group (``unbind``
+    views: the backward stacks their gradients once)."""
+    parts = [t.unbind(0) for t in leaves(groups, torch.is_tensor)]
+    return [with_leaves(groups, [p[gi] for p in parts]) for gi in range(n)]
+
+
+def _group_body(x, gp, group, cfg):
+    for i, kind in enumerate(group):
+        x = apply_block(gp[i], kind, x, cfg)
+    return x
+
+
+def forward(params, cfg, tokens, *, mode="train", logits_mode="all",
+            remat=False):
     """tokens (B, S) int -> hidden states (B, S, d) float32
     (``logits_mode="hidden"``) or logits (B, S, V) / (B, 1, V) float32
-    (``"all"`` / ``"last"``). Train mode only: positions are the index."""
+    (``"all"`` / ``"last"``). Train mode only: positions are the index.
+    ``remat`` recomputes each stacked group in the backward instead of
+    keeping its activations (the same numbers either way); a backward
+    through it runs outside this function, so callers wrap it in
+    :func:`repro_torch.device.full_fp32` as well."""
     if mode != "train":
         raise NotImplementedError(f"forward mode {mode!r} (prefill/decode "
                                   "caches) is not ported yet")
@@ -109,11 +133,12 @@ def forward(params, cfg, tokens, *, mode="train", logits_mode="all"):
     params = compute_params(params)
     with full_fp32():
         x = params["embed"][tokens.long()].to(torch.bfloat16)
-        for gi in range(n_full):
-            gp = tree_map(lambda t: t[gi], params["groups"],
-                          is_leaf=torch.is_tensor)
-            for i, kind in enumerate(group):
-                x = apply_block(gp[i], kind, x, cfg)
+        for gp in _unstack(params["groups"], n_full):
+            if remat:
+                x = checkpoint(_group_body, x, gp, group, cfg,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _group_body(x, gp, group, cfg)
         for i, kind in enumerate(rem):
             x = apply_block(params["tail"][i], kind, x, cfg)
         x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)

@@ -16,6 +16,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class PSpec(NamedTuple):
     shape: tuple
@@ -43,6 +45,13 @@ def leaves(tree, is_leaf=lambda x: isinstance(x, PSpec)) -> list:
     out = []
     tree_map(out.append, tree, is_leaf)
     return out
+
+
+def with_leaves(tree, values):
+    """``tree`` with its tensor leaves replaced, in flatten order, by
+    ``values``."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree, is_leaf=torch.is_tensor)
 
 
 def tree_stack_template(template, n: int):
@@ -74,28 +83,31 @@ def _init_leaf(p: PSpec, gen: torch.Generator):
     return z * float(1.0 / np.sqrt(max(fan_in, 1)))
 
 
-def init_params(template, generator: torch.Generator, device="cpu"):
+def init_params(template, generator: torch.Generator, device="cuda"):
     """float32 tensors for every leaf of ``template``, drawn in flatten
     order from ``generator`` (a CPU generator, so that a seed gives the
-    same parameters on every device) and moved to ``device`` leaf by
-    leaf."""
+    same parameters on every device) and moved to ``device`` (the card
+    unless told otherwise; raises without one) leaf by leaf."""
     if generator.device.type != "cpu":
         raise ValueError("init_params draws from a CPU generator so that "
                          "parameters do not depend on the device")
-    return tree_map(lambda p: _init_leaf(p, generator).to(device), template)
+    dev = resolve_device(device)
+    return tree_map(lambda p: _init_leaf(p, generator).to(dev), template)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cuda"):
     """The reference's parameter tree (``jax.tree_util.tree_map(np.asarray,
     params)``: dicts, tuples, numpy arrays) as the port's parameters: the
     ``groups`` stacked on their leading ``n_full`` axis, ``tail`` a tuple
-    of block dicts, every array a tensor on ``device`` with its dtype."""
+    of block dicts, every array a tensor on ``device`` (the card unless
+    told otherwise; raises without one) with its dtype."""
+    dev = resolve_device(device)
     def leaf(a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16
             t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(a))          # a writable copy
-        return t.to(device)
+        return t.to(dev)
     return tree_map(leaf, tree, is_leaf=lambda x: not isinstance(
         x, (dict, tuple)))

@@ -37,7 +37,8 @@ def rglru_template(cfg):
     }
 
 
-def rglru_init_state(cfg, batch, dtype=torch.float32, device="cpu"):
+def rglru_init_state(cfg, batch, dtype=torch.float32, *, device):
+    """The zero state of ``batch`` sequences on the caller's ``device``."""
     return {
         "h": torch.zeros((batch, cfg.d_lru), dtype=torch.float32,
                          device=device),

@@ -64,7 +64,8 @@ def _ref_draws(ec, N, n_features):
         ul = np.asarray(jax.random.uniform(jax.random.fold_in(key, 1), (N,)))
         P = jenc.model_params(ec)
         proj = np.asarray(jenc.projection(ec, n_features))
-    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, P))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, P),
+                               device="cpu")
     return dict(u=u, ul=ul, params=params, proj=torch.from_numpy(proj.copy()))
 
 

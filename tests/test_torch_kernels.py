@@ -7,6 +7,19 @@ inputs made from a seed with numpy. Tolerances are the reference test's
 (tests/test_labelstream.py::test_ds_estep_kernel_matches_ref): 1e-4 on
 logp, 1e-5 on post. The kernel itself is held against the plain version on
 the card in tests/test_torch_kernels_cuda.py and chip_smoke.py.
+
+The cross entropy's plain version is held against the Pallas kernel in
+interpret mode at the reference test's cases and tolerance
+(tests/test_kernels.py::test_streaming_xent), and against the jnp oracle at
+float32's 2e-5. The plain backward versions (``xent_bwd_ref``,
+``attention_bwd_ref``, ``linear_scan_bwd_ref``) are held against
+``jax.vjp`` of the reference's oracles: float32 at 2e-5 for the cross
+entropy and attention (float32 sums in other orders) and 20x that for the
+scan (the oracle's associative scan sums in another order, as its forward
+test allows); bfloat16 attention at the reference tests' 2e-2 (jnp.repeat's
+transpose sums the G heads' gradients in bfloat16, the port in float32);
+the bfloat16 cross entropy's gradient within one bfloat16 ulp. On the CPU
+each wrapper's autograd gives exactly its plain backward.
 """
 import math
 import os
@@ -18,12 +31,21 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+import jax  # noqa: E402
+
 import repro.kernels.ref as jref  # noqa: E402
 from repro.kernels.ds_estep import ds_estep as jax_ds_estep  # noqa: E402
+from repro.kernels.xent import streaming_xent as jax_xent  # noqa: E402
 import repro_torch  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.ds_estep import ds_estep  # noqa: E402
-from repro_torch.kernels.ref import ds_estep_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.linear_scan import linear_scan  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    attention_bwd_ref, attention_ref, ds_estep_ref, linear_scan_bwd_ref,
+    linear_scan_ref, xent_bwd_ref, xent_ref,
+)
+from repro_torch.kernels.xent import streaming_xent  # noqa: E402
 
 
 def _inputs(W, C, T, V, seed, B=None):
@@ -100,3 +122,125 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+# ------------------------------------------------ the training kernels ----
+
+def _xent_inputs(N, V, seed, bf16):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(N, V)) * 3).astype(np.float32)
+    t = rng.integers(0, V, N).astype(np.int32)
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    if bf16:
+        xj, xt = xj.astype(jnp.bfloat16), xt.to(torch.bfloat16)
+    return xj, xt, jnp.asarray(t), torch.from_numpy(t)
+
+
+@pytest.mark.parametrize("N,V", [(10, 100), (64, 50304), (33, 777)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_xent_plain_matches_pallas_interpret(N, V, bf16):
+    xj, xt, tj, tt = _xent_inputs(N, V, N + V, bf16)
+    got = xent_ref(xt, tt).numpy()
+    before = streaming_xent.launches
+    np.testing.assert_array_equal(streaming_xent(xt, tt).numpy(), got)
+    np.testing.assert_array_equal(ops.streaming_xent(xt, tt).numpy(), got)
+    assert streaming_xent.launches == before          # CPU: no launch
+    tol = 2e-2 if bf16 else 2e-5
+    np.testing.assert_allclose(
+        got, np.asarray(jax_xent(xj, tj, interpret=True)),
+        atol=max(tol * 10, 1e-4), rtol=1e-2)
+    np.testing.assert_allclose(got, np.asarray(jref.xent_ref(xj, tj)),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("N,V", [(10, 100), (33, 777)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_xent_bwd_plain_matches_jax_vjp(N, V, bf16):
+    xj, xt, tj, tt = _xent_inputs(N, V, N * V, bf16)
+    g = np.random.default_rng(N).normal(size=N).astype(np.float32)
+    g[1] = 0.0
+    _, vjp = jax.vjp(lambda z: jref.xent_ref(z, tj), xj)
+    (want,) = vjp(jnp.asarray(g))
+    lse = torch.logsumexp(xt.float(), -1)
+    got = xent_bwd_ref(xt, tt, lse, torch.from_numpy(g))
+    assert got.dtype == xt.dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=1e-6, rtol=8e-3 if bf16 else 2e-5)
+    xr = xt.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(streaming_xent(xr, tt),
+                                  xr, torch.from_numpy(g))
+    assert torch.equal(auto, got)
+
+
+# (B, Hq, Hkv, Sq, Sk, D) x (causal, window): GQA at a length that is not a
+# multiple of anything, MQA across lengths, a window, and non-causal ones
+ATTN_BWD = [((1, 4, 2, 37, 37, 16), (True, 0)),
+            ((2, 4, 1, 24, 40, 16), (True, 0)),
+            ((1, 2, 2, 50, 50, 32), (True, 8)),
+            ((1, 3, 1, 20, 20, 16), (False, 0)),
+            ((1, 2, 2, 33, 33, 16), (False, 5))]
+
+
+@pytest.mark.parametrize("shape,cw", ATTN_BWD)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_attention_bwd_plain_matches_jax_vjp(shape, cw, bf16):
+    B, Hq, Hkv, Sq, Sk, D = shape
+    causal, window = cw
+    rng = np.random.default_rng(sum(shape))
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D),
+                      (B, Hq, Sq, D))]
+    js = [jnp.asarray(a) for a in arrs]
+    ts_ = [torch.from_numpy(a) for a in arrs]
+    if bf16:
+        js = [a.astype(jnp.bfloat16) for a in js]
+        ts_ = [a.to(torch.bfloat16) for a in ts_]
+    q, k, v, do = ts_
+    _, vjp = jax.vjp(lambda a, b, c: jref.attention_ref(
+        a, b, c, causal=causal, window=window), *js[:3])
+    want = vjp(js[3])
+    o = attention_ref(q, k, v, causal=causal, window=window)
+    got = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    tol = 2e-2 if bf16 else 2e-5
+    for a, b in zip(got, want):
+        assert a.dtype == q.dtype and tuple(a.shape) == tuple(b.shape)
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b.astype(jnp.float32)),
+                                   atol=tol, rtol=tol)
+    # the wrapper's autograd on the CPU is the plain backward, in the
+    # model's (B, S, H, D) layout
+    tr = lambda x: x.transpose(1, 2)
+    qr, kr, vr = (tr(x).detach().requires_grad_(True) for x in (q, k, v))
+    auto = torch.autograd.grad(flash_attention(qr, kr, vr, causal=causal,
+                                               window=window),
+                               (qr, kr, vr), tr(do))
+    for a, b in zip(auto, got):
+        assert torch.equal(tr(a), b)
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 50, 7), (3, 33, 16)])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_linear_scan_bwd_plain_matches_jax_vjp(B, S, D, with_h0):
+    rng = np.random.default_rng(B * S * D)
+    a = (1 / (1 + np.exp(-rng.normal(size=(B, S, D))))).astype(np.float32)
+    b = rng.normal(size=(B, S, D)).astype(np.float32)
+    h0 = rng.normal(size=(B, D)).astype(np.float32)
+    g = rng.normal(size=(B, S, D)).astype(np.float32)
+    args = (jnp.asarray(a), jnp.asarray(b)) + ((jnp.asarray(h0),)
+                                               if with_h0 else ())
+    _, vjp = jax.vjp(lambda *x: jref.linear_scan_ref(*x), *args)
+    want = vjp(jnp.asarray(g))
+    th0 = torch.from_numpy(h0) if with_h0 else None
+    h = linear_scan_ref(torch.from_numpy(a), torch.from_numpy(b), th0)
+    da, db, dh0 = linear_scan_bwd_ref(torch.from_numpy(a), h,
+                                      torch.from_numpy(g), th0)
+    got = (da, db) + ((dh0,) if with_h0 else ())
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=4e-4,
+                                   rtol=4e-4)
+    ins = [torch.from_numpy(x).requires_grad_(True)
+           for x in (a, b) + ((h0,) if with_h0 else ())]
+    auto = torch.autograd.grad(linear_scan(*ins), ins, torch.from_numpy(g))
+    for x, y in zip(auto, got):
+        assert torch.equal(x, y)

@@ -16,9 +16,11 @@ from repro_torch.kernels.ds_estep import ds_estep
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.linear_scan import linear_scan
 from repro_torch.kernels.ref import (
-    attention_ref, ds_estep_ref, entropy_ref, linear_scan_ref,
+    attention_bwd_ref, attention_ref, ds_estep_ref, entropy_ref,
+    linear_scan_bwd_ref, linear_scan_ref, xent_bwd_ref, xent_ref,
 )
 from repro_torch.kernels.uncertainty import entropy_scores
+from repro_torch.kernels.xent import streaming_xent
 
 
 def _card():
@@ -283,6 +285,178 @@ def test_linear_scan_wrapper_rejects_bad_inputs():
         linear_scan(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError):
         linear_scan(a, a, _randn((3, 4), 1, dev))
+
+
+# (N, V): tests/test_kernels.py::test_streaming_xent's shapes (logits x 3),
+# a row not a multiple of the 16-byte vector with an odd base, and the
+# training shape's width. Loss and lse: both read the same values and sum
+# in float32 in other orders (2e-4 absolute, 1e-5 relative); dlogits: the
+# kernel's exp differs from torch's in the last bits (1e-6 absolute) and a
+# bfloat16 result can round to the other neighbour (one ulp, 2^-8).
+XENT_SHAPES = [(10, 100), (64, 50304), (33, 777), (5, 1001), (16, 256000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V", XENT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streaming_xent_kernels_match_plain(N, V, dtype):
+    dev = _card()
+    x = (_randn((N, V), N * V, dev) * 3).to(dtype)
+    g = torch.Generator(device=dev)
+    g.manual_seed(N + V)
+    t = torch.randint(0, V, (N,), generator=g, device=dev)
+    t[0] = V - 1
+    gout = _randn((N,), N, dev)
+    gout[-1] = 0.0                           # an ignored row
+    xr = x.detach().requires_grad_(True)
+    before = (streaming_xent.launches, streaming_xent.bwd_launches)
+    loss = streaming_xent(xr, t)
+    assert loss.grad_fn is not None
+    (dx,) = torch.autograd.grad(loss, xr, gout)
+    torch.cuda.synchronize()
+    assert (streaming_xent.launches, streaming_xent.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert loss.dtype == torch.float32 and dx.dtype == dtype
+    torch.testing.assert_close(loss, xent_ref(x, t), atol=2e-4, rtol=1e-5)
+    lse = torch.logsumexp(x.float(), -1)
+    want = xent_bwd_ref(x, t, lse, gout)
+    rtol = 8e-3 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(dx.float(), want.float(), atol=1e-6,
+                               rtol=rtol)
+    assert bool((dx[-1] == 0).all())
+    assert torch.equal(loss, streaming_xent(x, t))
+
+
+@pytest.mark.cuda
+def test_streaming_xent_unaligned_and_rejects():
+    dev = _card()
+    buf = _randn((3 * 777 + 1,), 5, dev)
+    x = buf[1:].view(3, 777)                 # base off the 16-byte grid
+    t = torch.tensor([0, 776, 100], device=dev)
+    torch.testing.assert_close(streaming_xent(x, t), xent_ref(x, t),
+                               atol=2e-4, rtol=1e-5)
+    with pytest.raises(ValueError):
+        streaming_xent(_randn((4, 8), 1, dev).t(), t[:1].expand(8))
+    with pytest.raises(TypeError):
+        streaming_xent(_randn((4, 8), 1, dev).double(), t[:1].expand(4))
+    with pytest.raises(TypeError):
+        streaming_xent(_randn((4, 8), 1, dev), t[:1].expand(4).float())
+
+
+def _bwd_tol(dtype):
+    """The backward against attention_bwd_ref: in bfloat16 the reference
+    tests' 2e-2 (both round dq, dk, dv to bfloat16 from float32 sums); in
+    float32 5x the forward's 2e-5, since dk and dv sum G * Sq terms and ds
+    cancels p (dp - delta)."""
+    return 2e-2 if dtype == torch.bfloat16 else 1e-4
+
+
+def _check_flash_bwd(B, Hq, Hkv, Sq, Sk, D, causal, window, dtype, seed):
+    dev = _card()
+    q = _randn((B, Sq, Hq, D), seed, dev, dtype).requires_grad_(True)
+    k = _randn((B, Sk, Hkv, D), seed + 1, dev, dtype).requires_grad_(True)
+    v = _randn((B, Sk, Hkv, D), seed + 2, dev, dtype).requires_grad_(True)
+    do = _randn((B, Sq, Hq, D), seed + 3, dev, dtype)
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    assert o.grad_fn is not None
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    t = lambda x: x.transpose(1, 2)
+    want = attention_bwd_ref(t(q.detach()), t(k.detach()), t(v.detach()),
+                             t(o.detach()), t(do), causal=causal,
+                             window=window)
+    tol = _bwd_tol(dtype)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == t(w).shape
+        torch.testing.assert_close(got.float(), t(w).float(), atol=tol,
+                                   rtol=tol)
+    again = torch.autograd.grad(
+        flash_attention(q, k, v, causal=causal, window=window), (q, k, v),
+        do)
+    assert all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+
+
+# the forward's grid in (B, S, H, D) (causal, full and window), the
+# training shape (4 x 512 tokens, 10 q heads over 1 kv head of 256,
+# recurrentgemma's window binding only past 2048), a length that is not a
+# tile multiple, and a ragged head dim with a short window
+FLASH_BWD = [
+    (shape, cw, dt)
+    for shape in [(2, 4, 2, 256, 256, 64), (2, 4, 1, 128, 512, 64),
+                  (1, 2, 2, 200, 200, 64), (1, 6, 2, 256, 256, 128)]
+    for cw in [(True, 0), (False, 0), (True, 96)]
+    for dt in (torch.float32, torch.bfloat16)
+    if cw[0] or shape[3] == shape[4]] + [
+    ((4, 10, 1, 512, 512, 256), (True, 2048), torch.bfloat16),
+    ((2, 4, 2, 77, 77, 80), (True, 0), torch.bfloat16),
+    ((1, 10, 1, 300, 300, 256), (True, 64), torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cw,dtype", FLASH_BWD)
+def test_flash_attention_backward_matches_plain(shape, cw, dtype):
+    _check_flash_bwd(*shape, *cw, dtype, seed=sum(shape) + 7)
+
+
+# the forward's scan shapes and the training shape (4 x 512 tokens at the
+# RG-LRU width): one rounded multiply and add per step in the same order
+# in kernel and plain version, so equal bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D", SCAN_SHAPES[:4] + [(4, 512, 2560)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_scan_backward_matches_plain(B, S, D, dtype):
+    dev = _card()
+    a = torch.sigmoid(_randn((B, S, D), B * S, dev)).to(dtype)
+    b = _randn((B, S, D), B * S + 1, dev, dtype)
+    h0 = _randn((B, D), B * S + 2, dev)
+    g = _randn((B, S, D), B * S + 3, dev, dtype)
+    for init in (h0, None):
+        ar, br = a.requires_grad_(True), b.requires_grad_(True)
+        hr = None if init is None else init.requires_grad_(True)
+        before = (linear_scan.launches, linear_scan.bwd_launches)
+        h = linear_scan(ar, br, hr)
+        grads = torch.autograd.grad(h, [x for x in (ar, br, hr)
+                                        if x is not None], g)
+        torch.cuda.synchronize()
+        assert (linear_scan.launches, linear_scan.bwd_launches) == (
+            before[0] + 1, before[1] + 1)
+        da, db, dh0 = linear_scan_bwd_ref(a.detach(), h.detach(), g, init)
+        assert torch.equal(grads[0], da) and torch.equal(grads[1], db)
+        if init is not None:
+            assert torch.equal(grads[2], dh0)
+
+
+@pytest.mark.cuda
+def test_gradients_flow_through_the_kernels():
+    """Outputs of the kernels on card tensors that need a gradient carry a
+    grad_fn, and a backward reaches every input with a nonzero gradient."""
+    dev = _card()
+    mk = lambda shape, sd: _randn(shape, sd, dev, torch.bfloat16
+                                  ).requires_grad_(True)
+    q, k, v = mk((2, 48, 10, 256), 1), mk((2, 48, 1, 256), 2), \
+        mk((2, 48, 1, 256), 3)
+    o = flash_attention(q, k, v, causal=True, window=2048)
+    assert o.grad_fn is not None
+    o.float().square().sum().backward()
+    a = torch.sigmoid(_randn((2, 48, 64), 4, dev)).requires_grad_(True)
+    b = _randn((2, 48, 64), 5, dev).requires_grad_(True)
+    h0 = _randn((2, 64), 6, dev).requires_grad_(True)
+    h = linear_scan(a, b, h0)
+    assert h.grad_fn is not None
+    h.square().sum().backward()
+    x = _randn((8, 1000), 7, dev).requires_grad_(True)
+    loss = streaming_xent(x, torch.arange(8, device=dev))
+    assert loss.grad_fn is not None
+    loss.sum().backward()
+    for name, t in (("q", q), ("k", k), ("v", v), ("a", a), ("b", b),
+                    ("h0", h0), ("logits", x)):
+        assert t.grad is not None, name
+        assert bool(torch.isfinite(t.grad.float()).all()), name
+        assert t.grad.abs().max().item() > 0, name
 
 
 def test_lm_entry_points_need_a_card_unless_told_cpu(monkeypatch):

@@ -110,7 +110,7 @@ def _params(n_layers):
         with jax.threefry_partitionable(False):
             P = jinit(jm.model_template(jcfg), jax.random.key(n_layers))
         _PARAMS[n_layers] = (P, params_from_numpy(
-            jax.tree_util.tree_map(np.asarray, P)))
+            jax.tree_util.tree_map(np.asarray, P), device="cpu"))
     return _PARAMS[n_layers]
 
 
@@ -335,7 +335,8 @@ def test_rglru_and_attn_blocks_equal_reference_op_by_op():
         st = jr.rglru_init_state(jcfg, 4)
         y, new = jr.apply_rglru(p0["rglru"], xj, st, jcfg)
         yt, newt = tr.apply_rglru(t0["rglru"], xt,
-                                  tr.rglru_init_state(tcfg, 4, dtype=BF),
+                                  tr.rglru_init_state(tcfg, 4, dtype=BF,
+                                                     device="cpu"),
                                   tcfg)
         _close(yt, y, 5e-3, 0.15)
         _close(newt["h"], new["h"], 5e-3, 0.15)
@@ -428,8 +429,10 @@ def test_templates_and_counts_match_reference():
 
 def test_init_params_distributions_and_carry():
     _, tcfg = _configs(5)
-    t1 = init_params(tm.model_template(tcfg), torch.Generator().manual_seed(3))
-    t2 = init_params(tm.model_template(tcfg), torch.Generator().manual_seed(3))
+    t1 = init_params(tm.model_template(tcfg), torch.Generator().manual_seed(3),
+                     device="cpu")
+    t2 = init_params(tm.model_template(tcfg), torch.Generator().manual_seed(3),
+                     device="cpu")
     for a, b in zip(leaves(t1, torch.is_tensor), leaves(t2, torch.is_tensor)):
         assert torch.equal(a, b) and a.dtype == torch.float32
     assert abs(float(t1["embed"].std()) - 0.02) < 2e-3
