@@ -32,9 +32,11 @@ drives the port's main path on the card:
      ``Categorical.entropy``, replications per second, and a profiled
      round (kernels per round, device idle share);
   8. the ``flash_attention`` kernel against its plain version: the
-     reference tests' grid in float32 and bfloat16, the encoder's
-     full-width micro-batch (64, 10 / 1 heads, 48 tokens, D = 256), the
-     model's window binding at 4096 tokens, and a ragged head dim;
+     reference tests' grid in float32 (FMA kernel) and bfloat16
+     (tensor-core kernel), the encoder's full-width micro-batch (64, 10 / 1
+     heads, 48 tokens, D = 256), the training shape (4 x 512 tokens), the
+     model's window binding at 4096 tokens, a ragged head dim and rows that
+     are not 16-byte aligned;
   9. the ``linear_scan`` kernel against its plain version: the reference
      tests' grid, the encoder's RG-LRU shape (64, 48, 2560) with h0 and
      (2, 4096, 2560);
@@ -123,6 +125,41 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, n: int) -> float | None:
+    """Device time of one ``fn()`` in ms, from a CUDA graph of ``n`` calls
+    replayed back to back (no host time between launches), after two
+    warm-up calls on a side stream; None if ``fn`` cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / (3 * n)
+    except RuntimeError as exc:
+        say(f"[time] CUDA graph capture failed: {str(exc)[:160]}")
+        torch.cuda.synchronize()
+        return None
+
+
+def fmt_us(t_ms) -> str:
+    return "not measured" if t_ms is None else f"{t_ms * 1e3:.2f} us"
 
 
 def device_profile(fn):
@@ -891,13 +928,17 @@ def main():
                                     f"w={window} {dt}".replace("torch.", ""),
                                     shape, causal, window, dt, "bhsd"))
     FLASH_MAIN = (64, 10, 1, 48, 48, 256)
+    FLASH_TRAIN = "training (4, 512, 10/1, 256) bf16"
     flash_cases += [
         ("encoder (64, 48, 10/1, 256) bf16", FLASH_MAIN, True, 2048, bf16,
          "bshd"),
         ("window at length (1, 4096, 10/1, 256) bf16",
          (1, 10, 1, 4096, 4096, 256), True, 2048, bf16, "bshd"),
         ("ragged (2, 77, 4/2, 80) bf16", (2, 4, 2, 77, 77, 80), True, 0,
-         bf16, "bshd")]
+         bf16, "bshd"),
+        ("unaligned rows (1, 100, 3/1, 60) bf16", (1, 3, 1, 100, 100, 60),
+         True, 0, bf16, "bshd"),
+        (FLASH_TRAIN, (4, 10, 1, 512, 512, 256), True, 2048, bf16, "bshd")]
     flash_inputs_kept, flash_errs = {}, {}
     for label, shape, causal, window, dt, layout in flash_cases:
         q, k, v = flash_inputs(*shape, dt, layout)
@@ -916,7 +957,8 @@ def main():
                                              window=window)),
               f"flash_attention is not repeatable at {label}")
         flash_errs[label] = err
-        if shape in (FLASH_MAIN, (1, 10, 1, 4096, 4096, 256)):
+        if shape in (FLASH_MAIN, (1, 10, 1, 4096, 4096, 256),
+                     (4, 10, 1, 512, 512, 256)):
             flash_inputs_kept[label] = (shape, causal, window, dt,
                                         (q, k, v))
 
@@ -1269,19 +1311,27 @@ def main():
         def many():
             for _ in range(reps):
                 call()
-        _, _, _, by_name = device_profile(many)
-        dev_us = sum(t for n, t in by_name.items() if "flash_fwd" in n) / reps
+        dev_us, n_ev = mean_us(kernel_events(many)[1], "flash_fwd")
         bound, by, nbytes = flash_bound_ms(B, Hq, Hkv, Sq, Sk, D, 2, causal,
                                            window)
+        # device time per call without host gaps: the kernel and SDPA each
+        # replayed from a CUDA graph of 20 calls
+        g_ms, g_lib = graph_ms(call, 20), graph_ms(lib_call, 20)
         flash_t[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                               bound_ms=bound, bound_by=by, dev_us=dev_us)
         dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}"
-                   f"% of bound)" if dev_us > 0 else "device time not "
-                   "measured (no device events in the profile)")
+                   f"% of bound; {n_ev} of {reps} launches in the profile)"
+                   if dev_us > 0 else "device time not measured (no device "
+                   "events in the profile)")
+        lib_kernels = sorted(kernel_events(
+            lambda: [lib_call() for _ in range(reps)])[1])
+        say(f"[time] SDPA's kernels at {label}: "
+            + ("; ".join(n_[:90] for n_ in lib_kernels) or "none recorded"))
         say(f"[time] flash_attention {label}: per call {ms * 1e3:.2f} us, "
             f"{dev_txt}, plain per call {plain * 1e3:.2f} us, SDPA per call "
             f"{lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}, {nbytes} "
-            f"B); {card}")
+            f"B); from a CUDA graph: kernel {fmt_us(g_ms)}, SDPA "
+            f"{fmt_us(g_lib)} per call; {card}")
     scan_t = {}
     for label, (a, b, h0) in scan_inputs_kept.items():
         B, S, D = a.shape
@@ -1459,6 +1509,10 @@ def main():
          bf16),
         ("short window (1, 300, 10/1, 256) f32", (1, 10, 1, 300, 300, 256),
          True, 64, f32),
+        ("unaligned rows (1, 100, 3/1, 60) bf16", (1, 3, 1, 100, 100, 60),
+         True, 0, bf16),
+        ("head groups of 2 and 3 (3, 700, 10/2, 64) bf16",
+         (3, 10, 2, 700, 700, 64), True, 0, bf16),
         (FB_MAIN, (4, 10, 1, 512, 512, 256), True, 2048, bf16)]
     fb_errs, fb_kept = {}, None
     for label, shape, causal, window, dt in fb_cases:
@@ -1542,7 +1596,28 @@ def main():
     lib_o = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
     lib = cuda_ms(lambda: torch.autograd.grad(lib_o, (qr, kr, vr), tsp(do),
                                               retain_graph=True), reps)
-    del lib_o, qr, kr, vr
+    del lib_o
+    # device times from CUDA graphs: the backward kernels alone, and the
+    # forward, and forward plus backward, of both the kernels and SDPA
+    # (SDPA's backward is captured with its own forward)
+    g_bwd = graph_ms(lambda: kflash._bwd_kernel(q, k, v, o, lse, do, True,
+                                                2048), 10)
+    g_fb = graph_ms(lambda: torch.autograd.grad(
+        flash_attention(qr.transpose(1, 2), kr.transpose(1, 2),
+                        vr.transpose(1, 2), causal=True, window=2048),
+        (qr, kr, vr), do), 10)
+    g_lib_f = graph_ms(lambda: sdpa(qr, kr, vr, is_causal=True,
+                                    enable_gqa=True), 10)
+    g_lib_fb = graph_ms(lambda: torch.autograd.grad(
+        sdpa(qr, kr, vr, is_causal=True, enable_gqa=True), (qr, kr, vr),
+        tsp(do)), 10)
+    g_lib_b = (None if g_lib_f is None or g_lib_fb is None
+               else g_lib_fb - g_lib_f)
+    say(f"[time] flash_attention backward {FB_MAIN} from CUDA graphs: the "
+        f"kernels {fmt_us(g_bwd)}, forward + backward {fmt_us(g_fb)}; SDPA "
+        f"forward {fmt_us(g_lib_f)}, forward + backward {fmt_us(g_lib_fb)}, "
+        f"so its backward {fmt_us(g_lib_b)} per call; {card}")
+    del qr, kr, vr
 
     def many_fb():
         for _ in range(reps):
@@ -1550,7 +1625,8 @@ def main():
     _, events = kernel_events(many_fb)
     dev_us, n_ev = mean_us(events, "flash_bwd")
     parts = {part: mean_us(events, part)
-             for part in ("flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")}
+             for part in ("flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv",
+                          "flash_bwd_reduce")}
     bound, by, nbytes = flash_bwd_bound_ms(B, Hq, Hkv, Sq, Sq, D, 2, True,
                                            2048)
     fb_t = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
@@ -1771,6 +1847,10 @@ def main():
         say("[profile] the port's kernels, events in the profile / launches "
             "counted: " + ", ".join(f"{n} {seen13[n]}/{made13[n]}"
                                     for n in seen13))
+        for part in ("flash_fwd", "flash_bwd"):
+            us = sum(t_ for n_, t_ in by_name.items() if part in n_)
+            say(f"[profile] {part}*: {us / 1e3:.3f} ms/step, "
+                f"{us / busy * 100:.2f}% of the step's device time; {card}")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             say(f"[profile]   {us / 1e3:8.3f} ms/step  {name[:90]}")
     else:

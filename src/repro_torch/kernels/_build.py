@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/lib<name>-<hash>.so`` at the repository
-root (``build/`` is git-ignored). The hash is of the source, so an edited
-source never reuses a stale library. :func:`build` starts one ``nvcc`` per
-source, all at once, and waits for them together; :func:`load` builds on
-first use. Nothing here runs at import time: the CPU tests import every
-module of the port on machines without ``nvcc``.
+root (``build/`` is git-ignored). The hash is of the source and the shared
+``csrc/*.cuh`` headers, so an edited source or header never reuses a stale
+library. :func:`build` starts one ``nvcc`` per source, all at once, and
+waits for them together; :func:`load` builds on first use. Nothing here
+runs at import time: the CPU tests import every module of the port on
+machines without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -45,9 +46,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library path for ``csrc/<name>.cu``, named by a hash of the
+    source, every ``csrc/*.cuh`` header (any of which it may include) and
+    the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict:

@@ -16,7 +16,9 @@ the plain versions :func:`repro_torch.kernels.ref.attention_ref` and
 :func:`~repro_torch.kernels.ref.attention_bwd_ref`; for CUDA tensors they
 launch the kernels on the current stream or raise.
 ``flash_attention.launches`` and ``flash_attention.bwd_launches`` count
-kernel launches (a backward launch runs its three kernels).
+kernel launches (a backward launch runs its three or four kernels).
+bfloat16 operands go to the tensor-core kernels, float32 operands to the
+FMA kernels (see the sources).
 """
 from __future__ import annotations
 
@@ -31,23 +33,27 @@ from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 _fns: dict = {}
+_TAIL = ([ctypes.c_int] * 6
+         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# name -> (library, C function, argument types, return type)
+_SIGS = {
+    "fwd": ("flash_attention", "flash_attention_fwd",
+            [ctypes.c_void_p] * 5 + _TAIL, ctypes.c_int),
+    "bwd": ("flash_attention_bwd", "flash_attention_bwd",
+            [ctypes.POINTER(ctypes.c_void_p)] + _TAIL, ctypes.c_int),
+    "scratch": ("flash_attention_bwd", "flash_attention_bwd_scratch",
+                [ctypes.c_int] * 6, ctypes.c_longlong),
+}
 
 
-def _launcher(direction):
-    fn = _fns.get(direction)
+def _launcher(name):
+    fn = _fns.get(name)
     if fn is None:
-        if direction == "fwd":
-            fn = _build.load("flash_attention").flash_attention_fwd
-            head = [ctypes.c_void_p] * 5
-        else:
-            fn = _build.load("flash_attention_bwd").flash_attention_bwd
-            head = [ctypes.POINTER(ctypes.c_void_p)]
-        fn.argtypes = (head + [ctypes.c_int] * 6
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                          ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fns[direction] = fn
+        lib, cname, argtypes, restype = _SIGS[name]
+        fn = getattr(_build.load(lib), cname)
+        fn.argtypes, fn.restype = argtypes, restype
+        _fns[name] = fn
     return fn
 
 
@@ -94,12 +100,18 @@ def _bwd_kernel(q, k, v, o, lse, do, causal, window):
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    ts = (q, k, v, o, do, lse, delta, dq, dk, dv)
-    ptrs = (ctypes.c_void_p * 10)(*(t.data_ptr() for t in ts))
     ops = (q, k, v, o, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(x for t in ops
                                          for x in _strides(t)))
     with torch.cuda.device(q.device):
+        # the bf16 dk/dv kernel's float32 partials when it splits the query
+        # heads of a kv head into groups (the kernel's own rule)
+        nbytes = _launcher("scratch")(B, Hq, Hkv, Sk, D, _DTYPES[q.dtype])
+        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+                   if nbytes else None)
+        ts = (q, k, v, o, do, lse, delta, dq, dk, dv)
+        ptrs = (ctypes.c_void_p * 11)(*(t.data_ptr() for t in ts),
+                                      scratch.data_ptr() if nbytes else None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _launcher("bwd")(ptrs, B, Hq, Hkv, Sq, Sk, D, strides,
                                int(bool(causal)), int(window),

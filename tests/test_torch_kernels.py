@@ -219,6 +219,100 @@ def test_attention_bwd_plain_matches_jax_vjp(shape, cw, bf16):
         assert torch.equal(tr(a), b)
 
 
+_LOG2E = math.log2(math.e)
+
+
+def _bf16_route(q, k, v, do, causal, window, sms=132, tile=64):
+    """The arithmetic of the card's bfloat16 flash kernels, in PyTorch:
+    bf16 q, k, v (B, H, S, D) multiplied exactly into float32 scores; the
+    forward's online softmax over 64-key tiles in base 2, each tile's p
+    rounded to bf16 before p v, o divided by l and rounded once; the
+    backward's p^T and ds^T = p^T (dp^T - delta) (the difference in
+    float32) rounded to bf16 before their products, dk and dv summed per
+    group of query heads (the kernel's split rule for ``sms`` SMs) and the
+    groups' partials summed in order. Returns o and (dq, dk, dv)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    sl2 = _LOG2E / math.sqrt(D)
+    qf, gf = q.float(), do.float()
+    kf = k.float().repeat_interleave(G, 1)
+    vf = v.float().repeat_interleave(G, 1)
+    qp, kp = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        keep &= kp <= qp
+    if window > 0:
+        keep &= qp - kp < window
+    x = torch.where(keep, torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sl2,
+                    torch.tensor(-1e30))
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, D))
+    for k0 in range(0, Sk, tile):
+        xt = x[..., k0:k0 + tile]
+        m_new = torch.maximum(m, xt.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(xt - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bhkd->bhqd", p.bfloat16().float(), vf[:, :, k0:k0 + tile])
+        m = m_new
+    den = l.clamp_min(1e-30)
+    o = (acc / den).to(q.dtype)
+    lse2 = m + torch.log2(den)                  # log2 units
+    p = torch.exp2(x - lse2)
+    delta = (gf * o.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, vf) - delta)
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    scale = 1 / math.sqrt(D)
+    dq = (torch.einsum("bhqk,bhkd->bhqd", dsb, kf) * scale).to(q.dtype)
+    dk_h = torch.einsum("bhqk,bhqd->bhkd", dsb, qf)
+    dv_h = torch.einsum("bhqk,bhqd->bhkd", pb, gf)
+    base = B * Hkv * -(-Sk // tile)
+    nsplit = 1 if base >= sms else min(G, -(-sms // base))
+    dk = torch.zeros((B, Hkv, Sk, D))
+    dv = torch.zeros((B, Hkv, Sk, D))
+    for s in range(nsplit):
+        lo, hi = s * G // nsplit, (s + 1) * G // nsplit
+        part = lambda t: t.reshape(B, Hkv, G, Sk, D)[:, :, lo:hi].sum(2)
+        dk, dv = dk + part(dk_h), dv + part(dv_h)
+    return o, (dq, (dk * scale).to(k.dtype), dv.to(v.dtype))
+
+
+# the card tests' edge shapes (a head dim that is not a multiple of 8 over
+# an odd head count, a ragged head dim, a GQA group of 5 that the head split
+# does not divide, with a window) and the training shape's row structure
+# (512 tokens, 10 q heads over one kv head of 256)
+ROUTE_SHAPES = [((1, 3, 1, 100, 100, 60), (True, 0)),
+                ((2, 4, 2, 77, 77, 80), (True, 0)),
+                ((1, 5, 1, 150, 150, 32), (True, 40)),
+                ((1, 10, 1, 512, 512, 256), (True, 2048))]
+
+
+@pytest.mark.parametrize("shape,cw", ROUTE_SHAPES)
+def test_bf16_route_rounding_fits_the_card_gates(shape, cw):
+    """Rounding p and ds to bf16 where the tensor-core kernels do keeps o,
+    dq, dk and dv within the card tests' 2e-2 of the float32 plain
+    versions, so the design needs no hi/lo split."""
+    B, Hq, Hkv, Sq, Sk, D = shape
+    causal, window = cw
+    rng = np.random.default_rng(sum(shape))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to(torch.bfloat16)
+                   for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D),
+                             (B, Hkv, Sk, D), (B, Hq, Sq, D)))
+    o, grads = _bf16_route(q, k, v, do, causal, window)
+    want_o = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(o.float(), want_o.float(), atol=2e-2,
+                               rtol=2e-2)
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    for got, w in zip(grads, want):
+        assert got.dtype == torch.bfloat16 and got.shape == w.shape
+        torch.testing.assert_close(got.float(), w.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
 @pytest.mark.parametrize("B,S,D", [(2, 50, 7), (3, 33, 16)])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_linear_scan_bwd_plain_matches_jax_vjp(B, S, D, with_h0):

@@ -12,6 +12,7 @@ import math
 import pytest
 import torch
 
+import repro_torch.kernels.flash_attention as kflash
 from repro_torch.kernels.ds_estep import ds_estep
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.linear_scan import linear_scan
@@ -216,13 +217,18 @@ def test_flash_attention_kernel_matches_plain(shape, cw, dtype):
 
 # the model's shapes in its (B, S, H, D) layout: the encoder's full-width
 # micro-batch (64 tasks x 48 tokens, 10 q heads over 1 kv head, D = 256,
-# window 2048), recurrentgemma-2b's window binding at length 4096, and a
-# head dim that is not a multiple of 16 with ragged lengths
+# window 2048), recurrentgemma-2b's window binding at length 4096, the
+# training shape (4 x 512 tokens), a head dim that is not a multiple of 16
+# with ragged lengths, and one that is not a multiple of 8 over an odd head
+# count, so rows are not 16-byte aligned (the bf16 kernel's element-wise
+# staging)
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,window", [
     (64, 10, 1, 48, 256, 2048),
     (1, 10, 1, 4096, 256, 2048),
+    (4, 10, 1, 512, 256, 2048),
     (2, 4, 2, 77, 80, 0),
+    (1, 3, 1, 100, 60, 0),
 ])
 def test_flash_attention_kernel_model_layout(B, Hq, Hkv, S, D, window):
     _check_flash(B, Hq, Hkv, S, S, D, True, window, torch.bfloat16,
@@ -382,7 +388,10 @@ def _check_flash_bwd(B, Hq, Hkv, Sq, Sk, D, causal, window, dtype, seed):
 # the forward's grid in (B, S, H, D) (causal, full and window), the
 # training shape (4 x 512 tokens, 10 q heads over 1 kv head of 256,
 # recurrentgemma's window binding only past 2048), a length that is not a
-# tile multiple, and a ragged head dim with a short window
+# tile multiple, a ragged head dim with a short window, unaligned rows
+# (head dim 60 over 3 heads), and GQA groups of 5 that the bf16 dk/dv
+# kernel splits into 2 and 3 heads, at a length that is not a multiple of
+# 64 (3 x 2 kv heads x 11 k tiles = 66 blocks a group)
 FLASH_BWD = [
     (shape, cw, dt)
     for shape in [(2, 4, 2, 256, 256, 64), (2, 4, 1, 128, 512, 64),
@@ -393,6 +402,8 @@ FLASH_BWD = [
     ((4, 10, 1, 512, 512, 256), (True, 2048), torch.bfloat16),
     ((2, 4, 2, 77, 77, 80), (True, 0), torch.bfloat16),
     ((1, 10, 1, 300, 300, 256), (True, 64), torch.float32),
+    ((1, 3, 1, 100, 100, 60), (True, 0), torch.bfloat16),
+    ((3, 10, 2, 700, 700, 64), (True, 0), torch.bfloat16),
 ]
 
 
@@ -400,6 +411,25 @@ FLASH_BWD = [
 @pytest.mark.parametrize("shape,cw,dtype", FLASH_BWD)
 def test_flash_attention_backward_matches_plain(shape, cw, dtype):
     _check_flash_bwd(*shape, *cw, dtype, seed=sum(shape) + 7)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_head_split():
+    """The bf16 dk/dv kernel splits a kv head's G query heads into groups
+    so that its grid holds a block per SM; the wrapper sizes the float32
+    partials by the kernel's rule (none for one group or float32)."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = kflash._launcher("scratch")
+    for B, Hq, Hkv, Sk, D in [(4, 10, 1, 512, 256), (3, 10, 2, 700, 64),
+                              (1, 8, 8, 384, 128), (2, 4, 2, 77, 80)]:
+        base = B * Hkv * -(-Sk // 64)
+        ns = 1 if base >= sms else min(Hq // Hkv, -(-sms // base))
+        dp = next(p for p in (32, 64, 128, 256) if D <= p)
+        with torch.cuda.device(dev):
+            assert scratch(B, Hq, Hkv, Sk, D, 1) == (
+                2 * ns * B * Hkv * Sk * dp * 4 if ns > 1 else 0)
+            assert scratch(B, Hq, Hkv, Sk, D, 0) == 0
 
 
 # the forward's scan shapes and the training shape (4 x 512 tokens at the
