@@ -37,9 +37,13 @@ drives the port's main path on the card:
      heads, 48 tokens, D = 256), the training shape (4 x 512 tokens), the
      model's window binding at 4096 tokens, a ragged head dim and rows that
      are not 16-byte aligned;
-  9. the ``linear_scan`` kernel against its plain version: the reference
-     tests' grid, the encoder's RG-LRU shape (64, 48, 2560) with h0 and
-     (2, 4096, 2560);
+  9. both ``linear_scan`` routes' forward kernels (sequential, and
+     chunked: chunks of the recurrence composed in order) against their
+     plain versions, bit for bit: the reference tests' grid, the encoder's
+     RG-LRU shape (64, 48, 2560), the training shape (4, 512, 2560),
+     (2, 4096, 2560) and a ragged length, with and without h0; the chunked
+     plain version within the scan's tolerance of the sequential one, and
+     the wrapper on the route its shape gives;
  10. LM-featured hybrid learning through the full-width recurrentgemma-2b
      (2.89 B parameters, random weights from a seed): ``run_learning(
      "hybrid_small")`` with ``features.kind="lm"`` at 64 replications x 10
@@ -49,21 +53,26 @@ drives the port's main path on the card:
      versions' forward on the card; a reduced model on the card against
      the port on the CPU; tasks embedded per second, replications per
      second, the encoder's device idle share, and the kernels' times
-     beside their bounds, their plain versions and (flash) SDPA;
+     beside their bounds, their plain versions and (flash) SDPA, and both
+     scan routes timed at the encoder's, the training and the long shape
+     and over (B, S) at the model's width;
  11. the ``streaming_xent`` forward and backward kernels against their
      plain versions: the reference test's shapes in float32 and bfloat16,
      the training shape (2048, 256000) and ignored rows; loss, lse and
      dlogits, and their times beside the bounds, the plain versions and
      ``F.cross_entropy``;
- 12. the ``flash_attention`` and ``linear_scan`` backward kernels against
-     their plain backward versions at phases 8-9's shapes and the training
-     shapes (4 x 512 tokens), with times beside SDPA's backward and the
-     bounds, and a check that gradients reach every input on the card;
+ 12. the ``flash_attention`` and both ``linear_scan`` routes' backward
+     kernels against their plain backward versions at phases 8-9's shapes
+     and the training shapes (4 x 512 tokens), with times beside SDPA's
+     backward and the bounds, and a check that gradients reach every input
+     on the card;
  13. training the full-width recurrentgemma-2b (2.89 B parameters from a
      seed) for 5 steps on a fixed 4 x 512-token batch with remat and AdamW
      through ``Trainer.run``, twice, bit for bit; the loss falls, the
-     launch counts per step are as the model's layers give them; steps
-     and tokens per second, peak memory, a profiled step; a reduced model
+     launch counts per step are as the model's layers give them (the
+     scans on the chunked route); steps and tokens per second, peak
+     memory, a profiled step, and the step profiled again with the scans
+     on the sequential route and back; a reduced model
      on the card against the CPU; a crash, restore and continue at reduced
      size equal to a straight run.
 
@@ -342,8 +351,10 @@ def main():
     from repro_torch.embed.corpus import make_tokens
     from repro_torch.embed import encoder as eenc
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.linear_scan import linear_scan
-    from repro_torch.kernels.ref import attention_ref, linear_scan_ref
+    from repro_torch.kernels.linear_scan import (
+        ROUTES, linear_scan, scan_route,
+    )
+    from repro_torch.kernels.ref import attention_ref
     from repro_torch.models import layers as mlayers
     from repro_torch.models import recurrent as mrec
     from repro_torch.device import full_fp32
@@ -353,7 +364,7 @@ def main():
     from repro_torch.configs import get_config, reduced
     from repro_torch.data.corpus import CorpusConfig, make_batch
     from repro_torch.kernels.ref import (
-        attention_bwd_ref, linear_scan_bwd_ref, xent_bwd_ref, xent_ref,
+        attention_bwd_ref, xent_bwd_ref, xent_ref,
     )
     from repro_torch.kernels.xent import streaming_xent
     from repro_torch.models.stepfn import make_loss_fn
@@ -897,7 +908,9 @@ def main():
     # ---- phase 8: the flash_attention kernel against its plain version ---
     # tolerances as tests/test_kernels.py: 2e-5 in float32 (the kernel sums
     # q.k and p v in another order than the plain version's matmuls), 2e-2
-    # in bfloat16 (both round the output to bfloat16)
+    # in bfloat16 (both round the output to bfloat16; the kernel rounds each
+    # 64-key tile's unnormalized p to bfloat16 before p v, the plain version
+    # the normalized p, as the reference's _attn_direct does)
     tol = lambda dt: 2e-2 if dt == bf16 else 2e-5
     tsp = lambda x: x.transpose(1, 2)
 
@@ -945,12 +958,13 @@ def main():
         o = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = flash_plain(q, k, v, causal, window)
-        err = (o.float() - want.float()).abs().max().item()
+        diff = (o.float() - want.float()).abs()
+        err, err_mean = diff.max().item(), diff.mean().item()
         ok = (bool(torch.isfinite(o).all()) and o.shape == q.shape
               and bool(torch.allclose(o.float(), want.float(), atol=tol(dt),
                                       rtol=tol(dt))))
-        say(f"[flash] {label} ({layout}): max|do|={err:.3g} (atol/rtol "
-            f"{tol(dt)})")
+        say(f"[flash] {label} ({layout}): max|do|={err:.3g} mean|do|="
+            f"{err_mean:.3g} (atol/rtol {tol(dt)})")
         check(ok, f"flash_attention kernel disagrees with its plain version "
               f"at {label}")
         check(torch.equal(o, flash_attention(q, k, v, causal=causal,
@@ -962,40 +976,66 @@ def main():
             flash_inputs_kept[label] = (shape, causal, window, dt,
                                         (q, k, v))
 
-    # ---- phase 9: the linear_scan kernel against its plain version ------
-    # tolerance 20x tests/test_kernels.py's (as its scan test); the kernel
-    # and the plain version round the same multiply and add in the same
-    # order, so they are also held equal bit for bit
+    # ---- phase 9: the linear_scan kernels against their plain versions --
+    # tolerance 20x tests/test_kernels.py's (as its scan test). Each route's
+    # kernel rounds the same multiplies and adds in the same order as its
+    # plain version (sequential: linear_scan_ref; chunked: chunks of
+    # SCAN_CHUNK steps and their carries, linear_scan_chunked_ref), so each
+    # is also held equal to it bit for bit; the chunked plain version is
+    # held within the tolerance of the sequential one, and the wrapper
+    # equal to the plain version of the route scan_route gives the shape
     scan_cases = [(f"grid ({B}, {S}, {D}) {str(dt)[6:]}", B, S, D, dt)
                   for B, S, D in ((1, 64, 64), (3, 300, 150), (8, 256, 128),
                                   (2, 1000, 33))
                   for dt in (f32, bf16)]
     SCAN_MAIN = (64, 48, 2560)
+    SCAN_TRAIN = (4, 512, 2560)
     scan_cases += [("encoder rglru (64, 48, 2560) f32", *SCAN_MAIN, f32),
-                   ("long (2, 4096, 2560) f32", 2, 4096, 2560, f32)]
+                   ("training rglru (4, 512, 2560) f32", *SCAN_TRAIN, f32),
+                   ("long (2, 4096, 2560) f32", 2, 4096, 2560, f32),
+                   ("ragged (3, 1001, 2560) f32", 3, 1001, 2560, f32)]
     scan_inputs_kept, scan_errs = {}, {}
     for label, B, S, D, dt in scan_cases:
         a = torch.sigmoid(torch.randn((B, S, D), generator=gen,
                                       device=dev)).to(dt)
         b = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
         h0 = torch.randn((B, D), generator=gen, device=dev).to(dt)
+        route = scan_route(B, S, D, dt)
         for init in (h0, None):
+            init_f = None if init is None else init.float()
+            outs = {r: kscan._fwd_kernel(a, b, init_f, r) for r in ROUTES}
+            torch.cuda.synchronize()
+            wants = {r: ROUTES[r][0](a, b, init) for r in ROUTES}
+            same = {r: torch.equal(outs[r], wants[r]) for r in ROUTES}
+            again = {r: torch.equal(outs[r], kscan._fwd_kernel(
+                a, b, init_f, r)) for r in ROUTES}
+            err = {r: (outs[r].float() - wants[r].float()).abs().max().item()
+                   for r in ROUTES}
+            t20 = 20 * tol(dt)
+            ok = all(bool(torch.isfinite(o_).all()) and o_.shape == a.shape
+                     for o_ in outs.values())
+            # the chunked plain version against the sequential one
+            gap = (wants["chunked"].float() - wants["sequential"].float()
+                   ).abs().max().item()
+            ok = ok and bool(torch.allclose(wants["chunked"].float(),
+                                            wants["sequential"].float(),
+                                            atol=t20, rtol=t20))
             h = linear_scan(a, b, init)
             torch.cuda.synchronize()
-            want = linear_scan_ref(a, b, init)
-            err = (h.float() - want.float()).abs().max().item()
-            ok = (bool(torch.isfinite(h).all()) and h.shape == a.shape
-                  and bool(torch.allclose(h.float(), want.float(),
-                                          atol=20 * tol(dt),
-                                          rtol=20 * tol(dt))))
-            same = torch.equal(h, want)
+            wrapped = torch.equal(h, wants[route])
             say(f"[scan] {label} h0={'yes' if init is not None else 'no'}: "
-                f"max|dh|={err:.3g} (atol/rtol {20 * tol(dt):.3g}), "
-                f"{'bit-equal' if same else 'NOT bit-equal'}")
-            check(ok and same, f"linear_scan kernel disagrees with its plain "
-                  f"version at {label}")
+                + ", ".join(f"{r} max|dh|={err[r]:.3g} "
+                            f"{'bit-equal' if same[r] else 'NOT bit-equal'}"
+                            f"{'' if again[r] else ' NOT repeatable'}"
+                            for r in ROUTES)
+                + f"; chunked vs sequential plain {gap:.3g} (atol/rtol "
+                f"{t20:.3g}); the wrapper takes {route}"
+                f"{'' if wrapped else ' and DISAGREES with its plain version'}")
+            check(ok and all(same.values()) and all(again.values())
+                  and wrapped, f"a linear_scan kernel disagrees with its "
+                  f"plain version at {label}")
         scan_errs[label] = err
-        if (B, S, D) in (SCAN_MAIN, (2, 4096, 2560)):
+        if (B, S, D) in (SCAN_MAIN, SCAN_TRAIN, (2, 4096, 2560)):
             scan_inputs_kept[label] = (a, b, h0)
 
     # ---- phase 10: LM-featured learning at full width --------------------
@@ -1032,7 +1072,7 @@ def main():
 
     def zero_counts():
         flash_attention.launches = 0
-        linear_scan.launches = 0
+        linear_scan.launches = linear_scan.chunked_launches = 0
         entropy_scores.launches = 0
 
     learn10 = dict(n_reps=R7, rounds=ROUNDS, fit_steps=FIT)
@@ -1044,9 +1084,17 @@ def main():
     torch.cuda.synchronize()
     lm_first_s = time.perf_counter() - t0
     lm_launches = counts()
+    # the encoder's scans, (64, 48, 2560), take the sequential route
+    lm_chunked = linear_scan.chunked_launches
     check(lm_launches == (want_flash, want_scan, ROUNDS),
           f"LM learning made (flash, scan, entropy) = {lm_launches} "
           f"launches, expected {(want_flash, want_scan, ROUNDS)}")
+    want_chunked = (want_scan if scan_route(spec10.embed.batch_size,
+                                            spec10.embed.seq_len,
+                                            cfg10.d_lru, f32) == "chunked"
+                    else 0)
+    check(lm_chunked == want_chunked, f"LM learning made {lm_chunked} "
+          f"chunked scan launches, expected {want_chunked}")
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1097,7 +1145,9 @@ def main():
         f"x {FIT} fit steps; first run {lm_first_s:.2f} s, second run "
         f"{lm_second_s:.2f} s; launches flash "
         f"{lm_launches[0]} (= {kinds.count('attn')} x {n_mb}), scan "
-        f"{lm_launches[1]} (= {kinds.count('rglru')} x {n_mb}), entropy "
+        f"{lm_launches[1]} (= {kinds.count('rglru')} x {n_mb}; "
+        f"{lm_launches[1] - lm_chunked} sequential, {lm_chunked} chunked), "
+        f"entropy "
         f"{lm_launches[2]}; second run bit-equal; final accuracy "
         f"{fin10.mean():.4f} +- {fin10.std():.4f}, labels "
         f"{nl10[:, -1].min()}..{nl10[:, -1].max()}; {card}")
@@ -1115,9 +1165,11 @@ def main():
     # these shapes. The limit (3e-2 mean, 0.3 max, of the mean |h|) lies
     # 1.6x above the sound reading on an H100 (1.9e-2) and must lie below
     # that of a planted fault, the plain attention without its causal mask
-    # (1.06). A second fault, p rounded to bfloat16 before PV (what the
-    # reference's default path does in bfloat16), reads 2.7e-2: within the
-    # limit, so this comparison does not tell that rounding apart.
+    # (1.06). A second fault, p kept in float32 before PV (where the plain
+    # version, as the reference's default path, rounds it to bfloat16), read
+    # 2.7e-2 the other way round: within the limit, so this comparison does
+    # not tell the rounding point apart (tests/test_torch_models.py holds
+    # it against the reference).
     rng10 = np.random.default_rng(0)
     lab = rng10.integers(0, 2, 3 * spec10.embed.batch_size).astype(np.int32)
     tok, _ = make_tokens(ec10, lab, np.zeros_like(lab, bool), 2,
@@ -1137,8 +1189,8 @@ def main():
         finally:
             mlayers.flash_attention, mrec.linear_scan = saved
 
-    def attention_p_rounded(q, k, v, *, causal, window):
-        """The plain attention with p rounded to q's dtype before PV."""
+    def attention_p_f32(q, k, v, *, causal, window):
+        """The plain attention with p kept in float32 before PV."""
         q, k, v = tsp(q), tsp(k), tsp(v)
         G, Sq, D = q.shape[1] // k.shape[1], q.shape[2], q.shape[3]
         kk = k.repeat_interleave(G, 1).float()
@@ -1151,16 +1203,19 @@ def main():
             keep &= i[None] <= i[:, None]
         if window > 0:
             keep &= i[:, None] - i[None] < window
-        p = torch.softmax(sc.masked_fill(~keep, -1e30), -1).to(q.dtype)
-        return tsp(torch.einsum("bhqk,bhkd->bhqd", p.float(), vv)
-                   .to(q.dtype))
+        p = torch.softmax(sc.masked_fill(~keep, -1e30), -1)
+        return tsp(torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype))
 
     plain_flash = lambda q, k, v, *, causal, window: flash_plain(
         q, k, v, causal, window)
     no_mask = lambda q, k, v, *, causal, window: flash_plain(
         q, k, v, False, 0)
+
+    def scan_plain(a, b, h0=None):
+        """The plain version of the route the wrapper takes."""
+        return ROUTES[scan_route(*a.shape, a.dtype)][0](a, b, h0)
     hk = forward_with()
-    hp = forward_with(plain_flash, linear_scan_ref)
+    hp = forward_with(plain_flash, scan_plain)
     scale = hp.abs().mean().item()
 
     def fwd_err(h):
@@ -1169,14 +1224,14 @@ def main():
                 dh.eq(0).float().mean().item())
 
     mean_rel, max_rel, frac_eq = fwd_err(hk)
-    fault_nm = fwd_err(forward_with(no_mask, linear_scan_ref))
-    fault_pr = fwd_err(forward_with(attention_p_rounded, linear_scan_ref))
+    fault_nm = fwd_err(forward_with(no_mask, scan_plain))
+    fault_pr = fwd_err(forward_with(attention_p_f32, scan_plain))
     say(f"[lm] kernels' forward vs plain forward on the card ({len(tok)} "
         f"tasks, hidden states): mean |dh| {mean_rel:.3g} and max "
         f"{max_rel:.3g} of the mean |h| {scale:.4g}; {frac_eq * 100:.1f}% "
         f"equal (limit: 3e-2 and 0.3). Planted faults, same measure: no "
         f"causal mask {fault_nm[0]:.3g} / {fault_nm[1]:.3g} "
-        f"({fault_nm[2] * 100:.1f}% equal); p rounded to bfloat16 "
+        f"({fault_nm[2] * 100:.1f}% equal); p kept in float32 "
         f"{fault_pr[0]:.3g} / {fault_pr[1]:.3g} ({fault_pr[2] * 100:.1f}% "
         f"equal)")
     check(bool(torch.isfinite(hk).all()) and mean_rel <= 3e-2
@@ -1332,28 +1387,56 @@ def main():
             f"{lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}, {nbytes} "
             f"B); from a CUDA graph: kernel {fmt_us(g_ms)}, SDPA "
             f"{fmt_us(g_lib)} per call; {card}")
+    # both routes' forward kernels at the kept shapes (the wrapper's own
+    # route marked), launched directly; device time by the profiler
     scan_t = {}
+    KNAME = {"sequential": ("linear_scan_fwd", "linear_scan_bwd"),
+             "chunked": ("linear_scan_chunked_fwd", "linear_scan_chunked_bwd")}
     for label, (a, b, h0) in scan_inputs_kept.items():
         B, S, D = a.shape
-        reps = 50 if S <= 64 else 5
-        ms = cuda_ms(lambda: linear_scan(a, b, h0), reps)
-        plain = cuda_ms(lambda: linear_scan_ref(a, b, h0), max(reps // 5, 1))
-
-        def many():
-            for _ in range(reps):
-                linear_scan(a, b, h0)
-        _, _, _, by_name = device_profile(many)
-        dev_us = sum(t for n, t in by_name.items() if "linear_scan" in n) \
-            / reps
+        reps = 50 if S <= 64 else 10
+        h0f = h0.float()
         bound, by, nbytes = scan_bound_ms(B, S, D, 4, True)
-        scan_t[label] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                             bound_by=by, dev_us=dev_us)
-        dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}"
-                   f"% of bound)" if dev_us > 0 else "device time not "
-                   "measured (no device events in the profile)")
-        say(f"[time] linear_scan {label}: per call {ms * 1e3:.2f} us, "
-            f"{dev_txt}, plain per call {plain * 1e3:.2f} us, bound "
-            f"{bound * 1e3:.3f} us ({by}, {nbytes} B); {card}")
+        for r in ROUTES:
+            call = lambda: kscan._fwd_kernel(a, b, h0f, r)
+            ms = cuda_ms(call, reps)
+            plain = cuda_ms(lambda: ROUTES[r][0](a, b, h0), 1)
+
+            def many():
+                for _ in range(reps):
+                    call()
+            dev_us, n_ev = mean_us(kernel_events(many)[1], KNAME[r][0])
+            scan_t[(label, r)] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                      bound_by=by, dev_us=dev_us)
+            share = bound * 1e3 / dev_us * 100 if dev_us > 0 else 0.0
+            dev_txt = (f"device {dev_us:.2f} us ({share:.1f}% of bound; "
+                       f"{n_ev} of {reps} launches in the profile)"
+                       if dev_us > 0 else "device time not measured (no "
+                       "device events in the profile)")
+            mine = " (the wrapper's route)" if r == scan_route(B, S, D, f32) \
+                else ""
+            say(f"[time] linear_scan {r}{mine} {label} with h0: per call "
+                f"{ms * 1e3:.2f} us ({bound / ms * 100:.1f}% of bound), "
+                f"{dev_txt}, plain per call {plain * 1e3:.2f} us, bound "
+                f"{bound * 1e3:.3f} us ({by}, {nbytes} B); {card}")
+    # where the routes cross: the forward per call at S = 512 over B
+    sweep = []
+    for S_ in (48, 128, 512):
+        for B in (4, 8, 16, 24, 32, 64):
+            a = torch.sigmoid(torch.randn((B, S_, 2560), generator=gen,
+                                          device=dev))
+            b = torch.randn((B, S_, 2560), generator=gen, device=dev)
+            h0f = torch.randn((B, 2560), generator=gen, device=dev)
+            t_ = {r: cuda_ms(lambda: kscan._fwd_kernel(a, b, h0f, r), 20)
+                  for r in ROUTES}
+            sweep.append(
+                f"({B}, {S_}) route {scan_route(B, S_, 2560, f32)}: "
+                f"sequential {t_['sequential'] * 1e3:.2f} us, chunked "
+                f"{t_['chunked'] * 1e3:.2f} us, bound "
+                f"{scan_bound_ms(B, S_, 2560, 4, True)[0] * 1e3:.2f} us")
+            del a, b, h0f
+    say(f"[time] linear_scan forward per call at (B, S, 2560) f32 with h0, "
+        f"both routes: " + "; ".join(sweep) + f"; {card}")
     # where an encoder micro-batch's time goes
     toks2 = tok[:2 * Bm]
     lens2 = torch.full((2 * Bm,), spec10.embed.seq_len, dtype=torch.int32,
@@ -1547,7 +1630,11 @@ def main():
         if label == FB_MAIN:
             fb_kept = (q, k, v, o, lse, do)
         del want, again
-    # scan: da, db, dh0 against linear_scan_bwd_ref, bit for bit
+    # scan: da, db, dh0 of each route's backward kernel against its plain
+    # backward (linear_scan_bwd_ref / linear_scan_chunked_bwd_ref), bit for
+    # bit, on its own route's forward output; the chunked plain backward
+    # within 4e-4 (tests/test_torch_kernels.py's tolerance against jax.vjp)
+    # of the sequential one
     SB_MAIN = "training rglru (4, 512, 2560) f32"
     sb_cases = [(f"grid ({B}, {S}, {D}) {str(dt)[6:]}", B, S, D, dt)
                 for B, S, D in ((1, 64, 64), (3, 300, 150), (8, 256, 128),
@@ -1555,8 +1642,9 @@ def main():
                 for dt in (f32, bf16)]
     sb_cases += [("encoder rglru (64, 48, 2560) f32", *SCAN_MAIN, f32),
                  ("long (2, 4096, 2560) f32", 2, 4096, 2560, f32),
+                 ("ragged (3, 1001, 2560) f32", 3, 1001, 2560, f32),
                  (SB_MAIN, 4, 512, 2560, f32)]
-    sb_kept = None
+    sb_kept, sb_err_main = None, {}
     for label, B, S, D, dt in sb_cases:
         a = torch.sigmoid(torch.randn((B, S, D), generator=gen,
                                       device=dev)).to(dt)
@@ -1564,23 +1652,42 @@ def main():
         h0 = torch.randn((B, D), generator=gen, device=dev)
         g = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
         for init in (h0, None):
-            h = kscan._fwd_kernel(a, b, init)
-            da, db, dh0 = kscan._bwd_kernel(a, h, init, g, init is not None)
-            torch.cuda.synchronize()
-            wa, wb, wh0 = linear_scan_bwd_ref(a, h, g, init)
-            same = (torch.equal(da, wa) and torch.equal(db, wb)
-                    and (init is None or torch.equal(dh0, wh0)))
-            err = max((da.float() - wa.float()).abs().max().item(),
-                      (db.float() - wb.float()).abs().max().item())
+            txt, ok, wants = [], True, {}
+            for r in ROUTES:
+                h = kscan._fwd_kernel(a, b, init, r)
+                da, db, dh0 = kscan._bwd_kernel(a, h, init, g,
+                                                init is not None, r)
+                torch.cuda.synchronize()
+                wa, wb, wh0 = wants[r] = ROUTES[r][1](a, h, g, init)
+                same = (torch.equal(da, wa) and torch.equal(db, wb)
+                        and (init is None or torch.equal(dh0, wh0)))
+                again = kscan._bwd_kernel(a, h, init, g, init is not None, r)
+                rep = all(x is None or torch.equal(x, y)
+                          for x, y in zip((da, db, dh0), again))
+                err = max((da.float() - wa.float()).abs().max().item(),
+                          (db.float() - wb.float()).abs().max().item())
+                txt.append(f"{r} max|dda|, |ddb|={err:.3g} "
+                           f"{'bit-equal' if same else 'NOT bit-equal'}"
+                           f"{'' if rep else ' NOT repeatable'}")
+                ok = ok and same and rep and bool(
+                    torch.isfinite(da.float()).all())
+                if label == SB_MAIN:
+                    sb_err_main[r] = err
+            gap = max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(wants["chunked"], wants["sequential"])
+                      if x is not None)
+            tb_ = 4e-4 if dt == f32 else 2e-2
+            close = all(bool(torch.allclose(x.float(), y.float(), atol=tb_,
+                                            rtol=tb_))
+                        for x, y in zip(wants["chunked"], wants["sequential"])
+                        if x is not None)
             say(f"[scan-bwd] {label} h0={'yes' if init is not None else 'no'}"
-                f": max|dda|, |ddb|={err:.3g}, "
-                f"{'bit-equal' if same else 'NOT bit-equal'}")
-            check(same and bool(torch.isfinite(da.float()).all()),
-                  f"linear_scan backward disagrees with its plain version at "
-                  f"{label}")
+                f": " + ", ".join(txt) + f"; chunked vs sequential plain "
+                f"{gap:.3g} (atol/rtol {tb_})")
+            check(ok and close, f"a linear_scan backward kernel disagrees "
+                  f"with its plain version at {label}")
         if label == SB_MAIN:
-            sb_kept = (a, b, h0, g, kscan._fwd_kernel(a, b, h0))
-            sb_err_main = err
+            sb_kept = (a, b, h0, g)
 
     # timings at the training shapes
     q, k, v, o, lse, do = fb_kept
@@ -1641,25 +1748,32 @@ def main():
         f"SDPA backward (autograd) per call {lib * 1e3:.2f} us, bound "
         f"{bound * 1e3:.3f} us ({by}, {nbytes} B); {card}")
     del fb_kept, q, k, v, o, lse, do
-    a, b, h0, g, h = sb_kept
+    a, b, h0, g = sb_kept
     B, S, D = a.shape
-    ms = cuda_ms(lambda: kscan._bwd_kernel(a, h, h0, g, True), reps)
-    plain = cuda_ms(lambda: linear_scan_bwd_ref(a, h, g, h0), 2)
-
-    def many_sb():
-        for _ in range(reps):
-            kscan._bwd_kernel(a, h, h0, g, True)
-    dev_us, n_ev = mean_us(kernel_events(many_sb)[1], "linear_scan_bwd")
     bound, by, nbytes = scan_bwd_bound_ms(B, S, D, 4)
-    sb_t = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                dev_us=dev_us)
-    dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}% "
-               f"of bound; {n_ev} of {reps} launches in the profile)"
-               if dev_us > 0 else "device time not measured (no device "
-               "events in the profile)")
-    say(f"[time] linear_scan backward {SB_MAIN} with h0: per call "
-        f"{ms * 1e3:.2f} us, {dev_txt}, plain per call {plain * 1e3:.2f} us, "
-        f"bound {bound * 1e3:.3f} us ({by}, {nbytes} B); {card}")
+    sb_t = {}
+    for r in ROUTES:
+        h = kscan._fwd_kernel(a, b, h0, r)
+        call = lambda: kscan._bwd_kernel(a, h, h0, g, True, r)
+        ms = cuda_ms(call, reps)
+        plain = cuda_ms(lambda: ROUTES[r][1](a, h, g, h0), 2)
+
+        def many_sb():
+            for _ in range(reps):
+                call()
+        dev_us, n_ev = mean_us(kernel_events(many_sb)[1], KNAME[r][1])
+        sb_t[r] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                       dev_us=dev_us)
+        dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}"
+                   f"% of bound; {n_ev} of {reps} launches in the profile)"
+                   if dev_us > 0 else "device time not measured (no device "
+                   "events in the profile)")
+        mine = " (the wrapper's route)" if r == scan_route(B, S, D, f32) \
+            else ""
+        say(f"[time] linear_scan backward {r}{mine} {SB_MAIN} with h0: per "
+            f"call {ms * 1e3:.2f} us ({bound / ms * 100:.1f}% of bound), "
+            f"{dev_txt}, plain per call {plain * 1e3:.2f} us, bound "
+            f"{bound * 1e3:.3f} us ({by}, {nbytes} B); {card}")
     del sb_kept, a, b, h0, g, h
 
     # gradients reach every input through the public wrappers on the card
@@ -1728,6 +1842,7 @@ def main():
     def train_once(logs):
         for fn in kern13.values():
             fn.launches = fn.bwd_launches = 0
+        linear_scan.chunked_launches = linear_scan.chunked_bwd_launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         loader = FixedLoader()
@@ -1739,6 +1854,8 @@ def main():
         t_end = time.perf_counter()
         launches = {n: (fn.launches, fn.bwd_launches)
                     for n, fn in kern13.items()}
+        launches["linear_scan_chunked"] = (linear_scan.chunked_launches,
+                                           linear_scan.chunked_bwd_launches)
         peak = torch.cuda.max_memory_allocated()
         steps = np.diff(loader.times + [t_end])
         return dict(trainer=trainer, state=state, launches=launches,
@@ -1772,6 +1889,15 @@ def main():
               f"training made {got} (forward, backward) {n} launches in "
               f"{per_step} steps, expected "
               f"{(want[0] * per_step, want[1] * per_step)}")
+    # the scans at (4, 512, 2560) take the chunked route, forward and
+    # backward
+    route13 = scan_route(corpus13.global_batch, corpus13.seq_len, cfg13.d_lru,
+                         f32)
+    want_ch = (r1["launches"]["linear_scan"] if route13 == "chunked"
+               else (0, 0))
+    check(r1["launches"]["linear_scan_chunked"] == want_ch,
+          f"training made {r1['launches']['linear_scan_chunked']} chunked "
+          f"scan launches, expected {want_ch} (route {route13})")
     check(all(math.isfinite(x) for x in r1["losses"] + r1["gnorms"]),
           f"training losses or grad norms not finite: {r1['losses']}, "
           f"{r1['gnorms']}")
@@ -1787,6 +1913,7 @@ def main():
     state13 = r1["state"]
     for fn in kern13.values():
         fn.launches = fn.bwd_launches = 0
+    linear_scan.chunked_launches = linear_scan.chunked_bwd_launches = 0
     wall, ev13 = kernel_events(lambda: step_fn(state13, b13))
     n_k = sum(len(v) for v in ev13.values())
     by_name = {n: sum(v) for n, v in ev13.items()}
@@ -1796,14 +1923,33 @@ def main():
     seen13 = {n: mean_us(ev13, n)[1]
               for n in ("xent_fwd", "xent_bwd", "flash_fwd", "flash_bwd_dq",
                         "flash_bwd_dkdv", "linear_scan_fwd",
-                        "linear_scan_bwd")}
+                        "linear_scan_bwd", "linear_scan_chunked_fwd",
+                        "linear_scan_chunked_bwd")}
     made13 = {"xent_fwd": streaming_xent.launches,
               "xent_bwd": streaming_xent.bwd_launches,
               "flash_fwd": flash_attention.launches,
               "flash_bwd_dq": flash_attention.bwd_launches,
               "flash_bwd_dkdv": flash_attention.bwd_launches,
-              "linear_scan_fwd": linear_scan.launches,
-              "linear_scan_bwd": linear_scan.bwd_launches}
+              "linear_scan_fwd": (linear_scan.launches
+                                  - linear_scan.chunked_launches),
+              "linear_scan_bwd": (linear_scan.bwd_launches
+                                  - linear_scan.chunked_bwd_launches),
+              "linear_scan_chunked_fwd": linear_scan.chunked_launches,
+              "linear_scan_chunked_bwd": linear_scan.chunked_bwd_launches}
+    # the same step in this process with the scans forced onto the
+    # sequential route, then on their own route again: the chunked route's
+    # share of the step, measured on one card in turns
+    def step_busy():
+        _, ev = kernel_events(lambda: step_fn(state13, b13))
+        return (sum(sum(v) for v in ev.values()),
+                sum(sum(v) for n_, v in ev.items() if "linear_scan" in n_))
+    own_route = kscan.scan_route
+    kscan.scan_route = lambda B, S, D, dtype: "sequential"
+    try:
+        ab_seq = step_busy()
+    finally:
+        kscan.scan_route = own_route
+    ab_own = step_busy()
     n_params = sum(t_.numel() for t_ in leaves(state13["params"],
                                                torch.is_tensor))
     del r1["state"], r1["trainer"], state13, step_fn
@@ -1825,13 +1971,18 @@ def main():
     say(f"[train] losses {', '.join(f'{x:.6f}' for x in r1['losses'])}; "
         f"after the last step {final_loss:.6f}; grad norms "
         f"{', '.join(f'{x:.4f}' for x in r1['gnorms'])}; second run from "
-        f"the same seed: losses, grad norms and parameter digest bit-equal")
+        f"the same seed: losses, grad norms and parameter digest bit-equal. "
+        f"The scans take the {route13} route here (chunks of the recurrence "
+        f"composed in order), so the sums, and with them the losses, are "
+        f"ordered otherwise than by the sequential kernel")
     say(f"[train] launches per step (forward, backward): "
         + ", ".join(f"{n} {tuple(c // per_step for c in r1['launches'][n])}"
                     for n in kern13)
         + f" = expected (flash forward {n_attn} + {n_attn} recomputed, scan "
         f"forward {n_rglru} + {group.count('rglru') * n_full} recomputed: "
-        f"the tail's {rem.count('rglru')} are not)")
+        f"the tail's {rem.count('rglru')} are not); of the scans' "
+        f"{tuple(c // per_step for c in r1['launches']['linear_scan_chunked'])}"
+        f" on the chunked route")
     say(f"[time] training: parameters drawn in {r1['init_s']:.1f} s; step "
         f"times {', '.join(f'{s_:.3f}' for s_ in r1['steps'])} s -> "
         f"{sps:.3f} steps/s, {sps * tokens13:.0f} tokens/s (steps 2-"
@@ -1847,12 +1998,20 @@ def main():
         say("[profile] the port's kernels, events in the profile / launches "
             "counted: " + ", ".join(f"{n} {seen13[n]}/{made13[n]}"
                                     for n in seen13))
-        for part in ("flash_fwd", "flash_bwd"):
+        for part in ("flash_fwd", "flash_bwd", "linear_scan_chunked_fwd",
+                     "linear_scan_chunked_bwd", "linear_scan_fwd",
+                     "linear_scan_bwd", "linear_scan"):
             us = sum(t_ for n_, t_ in by_name.items() if part in n_)
             say(f"[profile] {part}*: {us / 1e3:.3f} ms/step, "
                 f"{us / busy * 100:.2f}% of the step's device time; {card}")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             say(f"[profile]   {us / 1e3:8.3f} ms/step  {name[:90]}")
+        scan_own = sum(t_ for n_, t_ in by_name.items() if "linear_scan" in n_)
+        say(f"[profile] the step in turns, device busy / scans: {route13} "
+            f"route {busy / 1e3:.1f} / {scan_own / 1e3:.3f} ms, the scans "
+            f"forced onto the sequential route {ab_seq[0] / 1e3:.1f} / "
+            f"{ab_seq[1] / 1e3:.3f} ms, {route13} again "
+            f"{ab_own[0] / 1e3:.1f} / {ab_own[1] / 1e3:.3f} ms; {card}")
     else:
         say("[profile] training: device time not measured (no device "
             "events)")
@@ -1867,13 +2026,21 @@ def main():
     tc_r = TrainConfig(steps=3, lr=3e-3, warmup=1, log_every=1, seed=3)
     lr_ = {}
     for key, d in (("card", "cuda"), ("cpu", "cpu")):
+        linear_scan.launches = linear_scan.bwd_launches = 0
+        linear_scan.chunked_launches = linear_scan.chunked_bwd_launches = 0
         t_r = Trainer(cfg_r, corpus_r, tc_r, log=lambda *a_: None, device=d)
         t_r.run()
         lr_[key] = [m["loss"] for _, m in t_r.metrics_log]
+        if key == "card":
+            # its scans, (4, 64, 64), take the sequential route
+            scan_r = (linear_scan.launches - linear_scan.chunked_launches,
+                      linear_scan.bwd_launches
+                      - linear_scan.chunked_bwd_launches)
     dl = max(abs(a_ - b_) / b_ for a_, b_ in zip(lr_["card"], lr_["cpu"]))
     say(f"[train] reduced model, card vs CPU, 3 steps: losses "
         f"{lr_['card']} vs {lr_['cpu']} (max relative difference {dl:.3g}, "
-        f"limit 4e-3)")
+        f"limit 4e-3); sequential scan launches on the card (forward, "
+        f"backward) {scan_r}")
     check(len(lr_["card"]) == 3 and dl <= 4e-3,
           "reduced training: card and CPU losses differ")
     # restart-exact at reduced size on the card: a straight run of 12 steps
@@ -1910,7 +2077,24 @@ def main():
     e_main = ent_t["learn-hybrid"]
     FLASH_LABEL = "encoder (64, 48, 10/1, 256) bf16"
     SCAN_LABEL = "encoder rglru (64, 48, 2560) f32"
-    f_main, s_main = flash_t[FLASH_LABEL], scan_t[SCAN_LABEL]
+    SCAN_TRAIN_LABEL = "training rglru (4, 512, 2560) f32"
+    f_main = flash_t[FLASH_LABEL]
+    s_main = scan_t[(SCAN_LABEL, "sequential")]
+    c_main = scan_t[(SCAN_TRAIN_LABEL, "chunked")]
+    scan_tr = train13["launches"]["linear_scan"]
+    scan_ch = train13["launches"]["linear_scan_chunked"]
+    # full-width training's scans, (4, 512, 2560), take the chunked route;
+    # the sequential backward runs in the reduced training on the card,
+    # whose scans are 64 steps long
+    say(f"[scan] launches on the main paths: sequential forward "
+        f"{lm_launches[1] - lm_chunked} (LM learning) + "
+        f"{scan_tr[0] - scan_ch[0]} (training at full width) + {scan_r[0]} "
+        f"(reduced training), chunked forward {lm_chunked} + {scan_ch[0]} + "
+        f"0; sequential backward {scan_tr[1] - scan_ch[1]} + {scan_r[1]}, "
+        f"chunked backward {scan_ch[1]} (full width, route {route13})")
+    check(lm_launches[1] - lm_chunked > 0 and scan_ch[0] > 0
+          and scan_ch[1] > 0 and scan_r[1] > 0, "a linear_scan kernel of "
+          "the main paths was not launched")
     say(json.dumps({"kernels": [{
         "name": "ds_estep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ds_estep.cu",
@@ -1939,10 +2123,18 @@ def main():
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan.py:44",
-        "launches": lm_launches[1],
-        "max_abs_err": scan_errs[SCAN_LABEL],
+        "launches": lm_launches[1] - lm_chunked,
+        "max_abs_err": scan_errs[SCAN_LABEL]["sequential"],
         "ms": s_main["ms"], "plain_ms": s_main["plain_ms"],
         "bound_ms": s_main["bound_ms"], "bound_by": s_main["bound_by"],
+        "library_ms": None}, {
+        "name": "linear_scan_chunked", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan.py:44",
+        "launches": scan_ch[0],
+        "max_abs_err": scan_errs[SCAN_TRAIN_LABEL]["chunked"],
+        "ms": c_main["ms"], "plain_ms": c_main["plain_ms"],
+        "bound_ms": c_main["bound_ms"], "bound_by": c_main["bound_by"],
         "library_ms": None}, {
         "name": "streaming_xent", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xent.cu",
@@ -1973,10 +2165,21 @@ def main():
         "name": "linear_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan.py:44",
-        "launches": train13["launches"]["linear_scan"][1],
-        "max_abs_err": sb_err_main,
-        "ms": sb_t["ms"], "plain_ms": sb_t["plain_ms"],
-        "bound_ms": sb_t["bound_ms"], "bound_by": sb_t["bound_by"],
+        "launches": scan_r[1],
+        "max_abs_err": sb_err_main["sequential"],
+        "ms": sb_t["sequential"]["ms"],
+        "plain_ms": sb_t["sequential"]["plain_ms"],
+        "bound_ms": sb_t["sequential"]["bound_ms"],
+        "bound_by": sb_t["sequential"]["bound_by"],
+        "library_ms": None}, {
+        "name": "linear_scan_chunked_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan.py:44",
+        "launches": scan_ch[1],
+        "max_abs_err": sb_err_main["chunked"],
+        "ms": sb_t["chunked"]["ms"], "plain_ms": sb_t["chunked"]["plain_ms"],
+        "bound_ms": sb_t["chunked"]["bound_ms"],
+        "bound_by": sb_t["chunked"]["bound_by"],
         "library_ms": None}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind,

@@ -1,5 +1,6 @@
 """Diagonal linear recurrence: the Hopper kernels of ``csrc/linear_scan.cu``
-(forward and backward) behind a checked, differentiable wrapper.
+(forward and backward, sequential and chunked) behind a checked,
+differentiable wrapper.
 
 Replaces ``src/repro/kernels/linear_scan.py::linear_scan`` (Pallas body
 ``_scan_kernel``), the RG-LRU state update h_t = a_t * h_{t-1} + b_t.
@@ -7,12 +8,22 @@ Replaces ``src/repro/kernels/linear_scan.py::linear_scan`` (Pallas body
 and an optional ``(B, D)`` h0, keeps the state in float32 and returns h in
 a's dtype. It is a ``torch.autograd.Function``: the backward kernel walks t
 in reverse from the saved output h (da, db, and dh0 when h0 needs one).
-For CPU tensors both directions run the plain versions
-:func:`repro_torch.kernels.ref.linear_scan_ref` and
-:func:`~repro_torch.kernels.ref.linear_scan_bwd_ref`; for CUDA tensors they
-launch the kernels on the current stream or raise.
+
+Two routes compute it, each a forward and a backward kernel with a plain
+version in :mod:`repro_torch.kernels.ref` that rounds in the same order:
+``sequential`` (one thread per channel walks all of S:
+:func:`~repro_torch.kernels.ref.linear_scan_ref`,
+:func:`~repro_torch.kernels.ref.linear_scan_bwd_ref`) and ``chunked``
+(chunks of ``SCAN_CHUNK`` steps, their carries composed in order:
+:func:`~repro_torch.kernels.ref.linear_scan_chunked_ref`,
+:func:`~repro_torch.kernels.ref.linear_scan_chunked_bwd_ref`).
+:func:`scan_route` picks one from the shape and dtype alone, so a CPU run
+and a card run of the same shapes round alike. For CPU tensors both
+directions run the route's plain versions; for CUDA tensors they launch
+the route's kernels on the current stream or raise.
 ``linear_scan.launches`` and ``linear_scan.bwd_launches`` count kernel
-launches.
+launches of either route, one per call; ``linear_scan.chunked_launches``
+and ``linear_scan.chunked_bwd_launches`` count those of the chunked route.
 """
 from __future__ import annotations
 
@@ -21,17 +32,52 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import linear_scan_bwd_ref, linear_scan_ref
+from repro_torch.kernels.ref import (
+    SCAN_CHUNK, linear_scan_bwd_ref, linear_scan_chunked_bwd_ref,
+    linear_scan_chunked_ref, linear_scan_ref,
+)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# up to this many steps (one segment of the chunked kernel: 8 chunks of
+# SCAN_CHUNK) the sequential kernel is as fast; past it the chunked one is
+# faster on an H100 at every B measured (PERF.md)
+SEQUENTIAL_MAX_STEPS = 8 * SCAN_CHUNK
+# route -> (forward plain version, backward plain version, forward C
+# function, backward C function)
+ROUTES = {
+    "sequential": (linear_scan_ref, linear_scan_bwd_ref,
+                   "linear_scan_fwd_c", "linear_scan_bwd_c"),
+    "chunked": (linear_scan_chunked_ref, linear_scan_chunked_bwd_ref,
+                "linear_scan_chunked_fwd_c", "linear_scan_chunked_bwd_c"),
+}
 _fns: dict = {}
+
+
+def scan_route(B: int, S: int, D: int, dtype) -> str:
+    """The route for a (B, S, D) scan of ``dtype``: ``"chunked"`` where S
+    is longer than ``SEQUENTIAL_MAX_STEPS`` (one segment of the chunked
+    kernel), else ``"sequential"``. On an H100 the chunked kernels are
+    4-5x faster at (4, 512, 2560) and (2, 4096, 2560) and no slower at any
+    B at S = 512, while at the encoder's (64, 48, 2560) the sequential
+    kernel is as fast. A pure function of the shape and dtype (B, D and
+    the dtype do not move the rule today): it never looks at a device."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"linear_scan takes float32 or bfloat16, not {dtype}")
+    return "chunked" if S > SEQUENTIAL_MAX_STEPS else "sequential"
 
 
 def _launcher(name):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_build.load("linear_scan"), name)
-        ptrs = 4 if name == "linear_scan_fwd_c" else 7
+        lib = _build.load("linear_scan")
+        if "chunked" in name:
+            lib.linear_scan_chunk_c.restype = ctypes.c_int
+            kl = lib.linear_scan_chunk_c()
+            if kl != SCAN_CHUNK:
+                raise RuntimeError(f"csrc/linear_scan.cu's chunk is {kl} "
+                                   f"steps, ref.SCAN_CHUNK {SCAN_CHUNK}")
+        fn = getattr(lib, name)
+        ptrs = 4 if "fwd" in name else 7
         fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -43,24 +89,30 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_kernel(a, b, h0f):
+def _fwd_kernel(a, b, h0f, route="sequential"):
+    """Launch the ``route``'s forward kernel on contiguous card tensors
+    (h0f float32 or None)."""
     B, S, D = a.shape
     out = torch.empty_like(a)
     if B == 0 or S == 0 or D == 0:
         return out
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _launcher("linear_scan_fwd_c")(
+        err = _launcher(ROUTES[route][2])(
             a.data_ptr(), b.data_ptr(), _ptr(h0f), out.data_ptr(), B, S, D,
             _DTYPES[a.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"linear_scan kernel launch failed: CUDA error "
-                           f"{err} (B={B}, S={S}, D={D}, {a.dtype})")
+        raise RuntimeError(f"linear_scan {route} kernel launch failed: CUDA "
+                           f"error {err} (B={B}, S={S}, D={D}, {a.dtype})")
     linear_scan.launches += 1
+    if route == "chunked":
+        linear_scan.chunked_launches += 1
     return out
 
 
-def _bwd_kernel(a, h, h0f, g, want_dh0):
+def _bwd_kernel(a, h, h0f, g, want_dh0, route="sequential"):
+    """Launch the ``route``'s backward kernel on contiguous card tensors;
+    returns (da, db, dh0 or None)."""
     B, S, D = a.shape
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = (torch.empty((B, D), dtype=torch.float32, device=a.device)
@@ -69,14 +121,17 @@ def _bwd_kernel(a, h, h0f, g, want_dh0):
         return da, db, None if dh0 is None else dh0.zero_()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _launcher("linear_scan_bwd_c")(
+        err = _launcher(ROUTES[route][3])(
             a.data_ptr(), h.data_ptr(), _ptr(h0f), g.data_ptr(),
             da.data_ptr(), db.data_ptr(), _ptr(dh0), B, S, D,
             _DTYPES[a.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"linear_scan backward launch failed: CUDA error "
-                           f"{err} (B={B}, S={S}, D={D}, {a.dtype})")
+        raise RuntimeError(f"linear_scan {route} backward launch failed: "
+                           f"CUDA error {err} (B={B}, S={S}, D={D}, "
+                           f"{a.dtype})")
     linear_scan.bwd_launches += 1
+    if route == "chunked":
+        linear_scan.chunked_bwd_launches += 1
     return da, db, dh0
 
 
@@ -84,11 +139,13 @@ class _LinearScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, h0):
         ctx.h0_dtype = None if h0 is None else h0.dtype
+        ctx.route = scan_route(*a.shape, a.dtype)
         if a.device.type == "cpu":
-            h = linear_scan_ref(a, b, h0)
+            h = ROUTES[ctx.route][0](a, b, h0)
         else:
             h0 = None if h0 is None else h0.to(torch.float32).contiguous()
-            h = _fwd_kernel(a, b, h0)
+            h = _fwd_kernel(a, b, h0, ctx.route)
+        # both routes' backwards read a, the output h and h0
         ctx.save_for_backward(a, h, h0)
         return h
 
@@ -98,9 +155,9 @@ class _LinearScan(torch.autograd.Function):
         g = g.to(a.dtype).contiguous()
         want_dh0 = ctx.needs_input_grad[2]
         if a.device.type == "cpu":
-            da, db, dh0 = linear_scan_bwd_ref(a, h, g, h0)
+            da, db, dh0 = ROUTES[ctx.route][1](a, h, g, h0)
         else:
-            da, db, dh0 = _bwd_kernel(a, h, h0, g, want_dh0)
+            da, db, dh0 = _bwd_kernel(a, h, h0, g, want_dh0, ctx.route)
         if want_dh0:
             dh0 = dh0.to(ctx.h0_dtype)
         return da, db, dh0 if want_dh0 else None
@@ -108,7 +165,8 @@ class _LinearScan(torch.autograd.Function):
 
 def linear_scan(a, b, h0=None):
     """h_t = a_t * h_{t-1} + b_t over (B, S, D), from ``h0`` (B, D) or
-    zero, differentiable in a, b and h0. a and b share a dtype (float32 or
+    zero, differentiable in a, b and h0, on the route :func:`scan_route`
+    gives for the shape and dtype. a and b share a dtype (float32 or
     bfloat16); on the card they must be contiguous."""
     if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
         raise ValueError(f"linear_scan takes a, b of one (B, S, D) shape, "
@@ -137,3 +195,5 @@ def linear_scan(a, b, h0=None):
 
 linear_scan.launches = 0
 linear_scan.bwd_launches = 0
+linear_scan.chunked_launches = 0
+linear_scan.chunked_bwd_launches = 0

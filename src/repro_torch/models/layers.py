@@ -67,8 +67,9 @@ def _is_index(pos, S):
 
 
 def _attention_by_position(q, k, v, q_pos, k_pos, causal, window):
-    """The reference's ``_attn_direct`` in float32 (p kept in float32):
-    masking by position vectors, negative ``k_pos`` marking empty slots."""
+    """The reference's ``_attn_direct``: scores and softmax in float32, p
+    rounded to v's dtype before p v; masking by position vectors, negative
+    ``k_pos`` marking empty slots."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -81,7 +82,7 @@ def _attention_by_position(q, k, v, q_pos, k_pos, causal, window):
         valid = valid & (q_pos[..., :, None] - k_pos[..., None, :] < window)
     mask = torch.where(valid, 0.0, _NEG).to(torch.float32)
     s = s * D ** -0.5 + mask[:, None, None]
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(s, dim=-1).to(v.dtype).to(torch.float32)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
     return o.reshape(B, Sq, Hq, D).to(v.dtype)
 

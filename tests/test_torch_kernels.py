@@ -19,7 +19,16 @@ scan (the oracle's associative scan sums in another order, as its forward
 test allows); bfloat16 attention at the reference tests' 2e-2 (jnp.repeat's
 transpose sums the G heads' gradients in bfloat16, the port in float32);
 the bfloat16 cross entropy's gradient within one bfloat16 ulp. On the CPU
-each wrapper's autograd gives exactly its plain backward.
+each wrapper's autograd gives exactly its plain backward (for the scan,
+that of the route ``scan_route`` takes for the shape).
+
+The chunked scan's plain versions sum in another order than the
+reference's associative scan and its Pallas kernel, so they are held to
+the scan's existing tolerances, not bit for bit: 20x the reference test's
+tol against the oracle, 1e-5 against the Pallas kernel in interpret mode
+(float32; bfloat16 rounds the output, 20x its tol), 4e-4 against
+``jax.vjp`` of the oracle. For S <= SCAN_CHUNK the two routes are equal
+bit for bit.
 """
 import math
 import os
@@ -35,14 +44,18 @@ import jax  # noqa: E402
 
 import repro.kernels.ref as jref  # noqa: E402
 from repro.kernels.ds_estep import ds_estep as jax_ds_estep  # noqa: E402
+from repro.kernels.linear_scan import linear_scan as jax_scan  # noqa: E402
 from repro.kernels.xent import streaming_xent as jax_xent  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.ds_estep import ds_estep  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.linear_scan import linear_scan  # noqa: E402
+from repro_torch.kernels.linear_scan import (  # noqa: E402
+    ROUTES, SEQUENTIAL_MAX_STEPS, linear_scan, scan_route,
+)
 from repro_torch.kernels.ref import (  # noqa: E402
-    attention_bwd_ref, attention_ref, ds_estep_ref, linear_scan_bwd_ref,
+    SCAN_CHUNK, attention_bwd_ref, attention_ref, ds_estep_ref,
+    linear_scan_bwd_ref, linear_scan_chunked_bwd_ref, linear_scan_chunked_ref,
     linear_scan_ref, xent_bwd_ref, xent_ref,
 )
 from repro_torch.kernels.xent import streaming_xent  # noqa: E402
@@ -292,9 +305,11 @@ ROUTE_SHAPES = [((1, 3, 1, 100, 100, 60), (True, 0)),
 
 @pytest.mark.parametrize("shape,cw", ROUTE_SHAPES)
 def test_bf16_route_rounding_fits_the_card_gates(shape, cw):
-    """Rounding p and ds to bf16 where the tensor-core kernels do keeps o,
-    dq, dk and dv within the card tests' 2e-2 of the float32 plain
-    versions, so the design needs no hi/lo split."""
+    """Rounding each 64-key tile's unnormalized p and ds to bf16 where the
+    tensor-core kernels do keeps o, dq, dk and dv within the card tests'
+    2e-2 of the plain versions, which round the normalized p to bf16 before
+    p v as the reference's ``_attn_direct`` does, so the design needs no
+    hi/lo split."""
     B, Hq, Hkv, Sq, Sk, D = shape
     causal, window = cw
     rng = np.random.default_rng(sum(shape))
@@ -333,8 +348,134 @@ def test_linear_scan_bwd_plain_matches_jax_vjp(B, S, D, with_h0):
     for x, y in zip(got, want):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=4e-4,
                                    rtol=4e-4)
+    # the wrapper's autograd is the plain backward of the route it takes
+    fwd, bwd = ROUTES[scan_route(B, S, D, torch.float32)][:2]
+    ta, tb, tg = (torch.from_numpy(x) for x in (a, b, g))
+    plain = bwd(ta, fwd(ta, tb, th0), tg, th0)
+    plain = plain[:2] + ((plain[2],) if with_h0 else ())
     ins = [torch.from_numpy(x).requires_grad_(True)
            for x in (a, b) + ((h0,) if with_h0 else ())]
     auto = torch.autograd.grad(linear_scan(*ins), ins, torch.from_numpy(g))
-    for x, y in zip(auto, got):
+    for x, y in zip(auto, plain):
         assert torch.equal(x, y)
+
+
+def _scan_inputs(B, S, D, seed):
+    rng = np.random.default_rng(seed)
+    a = (1 / (1 + np.exp(-rng.normal(size=(B, S, D))))).astype(np.float32)
+    return (a, rng.normal(size=(B, S, D)).astype(np.float32),
+            rng.normal(size=(B, D)).astype(np.float32),
+            rng.normal(size=(B, S, D)).astype(np.float32))
+
+
+# tests/test_kernels.py::test_linear_scan's shapes and a ragged S (77 = 9
+# chunks and 5 steps)
+CHUNKED_SHAPES = [(1, 64, 64), (3, 300, 150), (8, 256, 128), (2, 1000, 33),
+                  (2, 77, 40)]
+
+
+@pytest.mark.parametrize("B,S,D", CHUNKED_SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_linear_scan_chunked_plain_matches_jax(B, S, D, bf16):
+    a, b, h0, _ = _scan_inputs(B, S, D, B * S + D)
+    ta, tb, th = (torch.from_numpy(x) for x in (a, b, h0))
+    if bf16:
+        ta, tb, th = ta.bfloat16(), tb.bfloat16(), th.bfloat16()
+    f = lambda t: jnp.asarray(t.float().numpy())
+    tol = 20 * (2e-2 if bf16 else 2e-5)
+    for init_t, init_j in ((th, f(th)), (None, None)):
+        got = linear_scan_chunked_ref(ta, tb, init_t)
+        assert got.dtype == ta.dtype and got.shape == ta.shape
+        want = jax.jit(jref.linear_scan_ref)(f(ta), f(tb), init_j)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
+                                   atol=tol, rtol=tol)
+        # and within the same tolerance of the sequential plain version
+        np.testing.assert_allclose(
+            got.float().numpy(),
+            linear_scan_ref(ta, tb, init_t).float().numpy(),
+            atol=tol, rtol=tol)
+    jd = jnp.bfloat16 if bf16 else jnp.float32
+    pallas = jax_scan(f(ta).astype(jd), f(tb).astype(jd), f(th).astype(jd),
+                      interpret=True)
+    ptol = 20 * 2e-2 if bf16 else 1e-5
+    np.testing.assert_allclose(
+        linear_scan_chunked_ref(ta, tb, th).float().numpy(),
+        np.asarray(pallas.astype(jnp.float32)), atol=ptol, rtol=ptol)
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 50, 7), (3, 33, 16), (2, 77, 40)])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_linear_scan_chunked_bwd_plain_matches_jax_vjp(B, S, D, with_h0):
+    a, b, h0, g = _scan_inputs(B, S, D, B * S * D + 1)
+    args = (jnp.asarray(a), jnp.asarray(b)) + ((jnp.asarray(h0),)
+                                               if with_h0 else ())
+    _, vjp = jax.vjp(lambda *x: jref.linear_scan_ref(*x), *args)
+    want = vjp(jnp.asarray(g))
+    th0 = torch.from_numpy(h0) if with_h0 else None
+    ta, tb, tg = (torch.from_numpy(x) for x in (a, b, g))
+    h = linear_scan_chunked_ref(ta, tb, th0)
+    da, db, dh0 = linear_scan_chunked_bwd_ref(ta, h, tg, th0)
+    got = (da, db) + ((dh0,) if with_h0 else ())
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=4e-4,
+                                   rtol=4e-4)
+
+
+@pytest.mark.parametrize("S", list(range(1, SCAN_CHUNK + 1)))
+@pytest.mark.parametrize("bf16", [False, True])
+def test_linear_scan_routes_equal_within_one_chunk(S, bf16):
+    """For S <= SCAN_CHUNK the chunked walk is the sequential one: equal
+    bit for bit, forward and backward, with and without h0."""
+    a, b, h0, g = (torch.from_numpy(x)
+                   for x in _scan_inputs(3, S, 17, 100 + S))
+    if bf16:
+        a, b, g = a.bfloat16(), b.bfloat16(), g.bfloat16()
+    for init in (h0, None):
+        h = linear_scan_ref(a, b, init)
+        assert torch.equal(linear_scan_chunked_ref(a, b, init), h)
+        for x, y in zip(linear_scan_chunked_bwd_ref(a, h, g, init),
+                        linear_scan_bwd_ref(a, h, g, init)):
+            assert torch.equal(x, y)
+
+
+def test_linear_scan_route_is_a_function_of_shape_and_dtype(monkeypatch):
+    """The route reads the shape and dtype only: no device argument, and
+    the same answer whether or not torch sees a card."""
+    import inspect
+    assert list(inspect.signature(scan_route).parameters) == [
+        "B", "S", "D", "dtype"]
+    cases = {(4, 512, 2560): "chunked", (2, 4096, 2560): "chunked",
+             (64, 48, 2560): "sequential", (64, 512, 2560): "chunked",
+             (4, SEQUENTIAL_MAX_STEPS, 64): "sequential",
+             (4, SEQUENTIAL_MAX_STEPS + 1, 64): "chunked"}
+    got = {c: scan_route(*c, torch.float32) for c in cases}
+    assert got == cases
+    assert {c: scan_route(*c, torch.bfloat16) for c in cases} == cases
+
+    def no_device(*_a, **_k):
+        raise AssertionError("scan_route asked about a device")
+    monkeypatch.setattr(torch.cuda, "is_available", no_device)
+    monkeypatch.setattr(torch.cuda, "device_count", no_device)
+    assert {c: scan_route(*c, torch.float32) for c in cases} == cases
+    with pytest.raises(TypeError):
+        scan_route(4, 512, 2560, torch.float64)
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 5, 16), (2, 40, 16), (2, 77, 40),
+                                   (3, 300, 150)])
+def test_linear_scan_wrapper_runs_its_route_plain_version(B, S, D):
+    """On the CPU the wrapper's output and autograd gradients are the plain
+    versions of the route it takes, and no launch is counted."""
+    a, b, h0, g = (torch.from_numpy(x) for x in _scan_inputs(B, S, D, S))
+    fwd, bwd = ROUTES[scan_route(B, S, D, torch.float32)][:2]
+    before = (linear_scan.launches, linear_scan.bwd_launches,
+              linear_scan.chunked_launches, linear_scan.chunked_bwd_launches)
+    ins = [x.clone().requires_grad_(True) for x in (a, b, h0)]
+    h = linear_scan(*ins)
+    assert torch.equal(h, fwd(a, b, h0))
+    auto = torch.autograd.grad(h, ins, g)
+    for x, y in zip(auto, bwd(a, h.detach(), g, h0)):
+        assert torch.equal(x, y)
+    assert (linear_scan.launches, linear_scan.bwd_launches,
+            linear_scan.chunked_launches,
+            linear_scan.chunked_bwd_launches) == before

@@ -13,12 +13,13 @@ import pytest
 import torch
 
 import repro_torch.kernels.flash_attention as kflash
+import repro_torch.kernels.linear_scan as kscan
 from repro_torch.kernels.ds_estep import ds_estep
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.linear_scan import linear_scan
 from repro_torch.kernels.ref import (
     attention_bwd_ref, attention_ref, ds_estep_ref, entropy_ref,
-    linear_scan_bwd_ref, linear_scan_ref, xent_bwd_ref, xent_ref,
+    linear_scan_ref, xent_bwd_ref, xent_ref,
 )
 from repro_torch.kernels.uncertainty import entropy_scores
 from repro_torch.kernels.xent import streaming_xent
@@ -276,9 +277,11 @@ def test_linear_scan_kernel_matches_plain(B, S, D, dtype):
         tol = 20 * _tol(dtype)
         torch.testing.assert_close(h.float(), want.float(), atol=tol,
                                    rtol=tol)
-        # one rounded multiply and one rounded add per step, in order, in
-        # both: equal bit for bit by design
-        assert torch.equal(h, want)
+        # one rounded multiply and one rounded add per step, in the same
+        # order as the plain version of the route the wrapper takes: equal
+        # bit for bit by design
+        route = kscan.scan_route(B, S, D, dtype)
+        assert torch.equal(h, kscan.ROUTES[route][0](a, b, init))
 
 
 @pytest.mark.cuda
@@ -454,10 +457,58 @@ def test_linear_scan_backward_matches_plain(B, S, D, dtype):
         torch.cuda.synchronize()
         assert (linear_scan.launches, linear_scan.bwd_launches) == (
             before[0] + 1, before[1] + 1)
-        da, db, dh0 = linear_scan_bwd_ref(a.detach(), h.detach(), g, init)
+        bwd = kscan.ROUTES[kscan.scan_route(B, S, D, dtype)][1]
+        da, db, dh0 = bwd(a.detach(), h.detach(), g, init)
         assert torch.equal(grads[0], da) and torch.equal(grads[1], db)
         if init is not None:
             assert torch.equal(grads[2], dh0)
+
+
+# each route's kernels launched directly: the reference tests' grid, the
+# training shape (4 x 512 tokens at the RG-LRU width), a long sequence and
+# a ragged S that is not a multiple of the chunk; a D whose rows are not
+# 16-byte aligned takes the element-wise staging
+ROUTE_SHAPES = ([(B, S, D, dt) for B, S, D in SCAN_SHAPES[:4]
+                 for dt in (torch.float32, torch.bfloat16)]
+                + [(4, 512, 2560, torch.float32),
+                   (2, 4096, 2560, torch.float32),
+                   (3, 77, 2560, torch.float32), (2, 333, 90, torch.bfloat16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,dtype", ROUTE_SHAPES)
+@pytest.mark.parametrize("route", ["sequential", "chunked"])
+def test_linear_scan_route_kernels_match_plain(route, B, S, D, dtype):
+    """Each route's forward and backward kernel equal its plain versions
+    bit for bit (every multiply and add rounded on its own, in one order),
+    repeat bit for bit, and count one launch per call."""
+    dev = _card()
+    fwd, bwd = kscan.ROUTES[route][:2]
+    a = torch.sigmoid(_randn((B, S, D), B * S, dev)).to(dtype)
+    b = _randn((B, S, D), B * S + 1, dev, dtype)
+    h0 = _randn((B, D), B * S + 2, dev)
+    g = _randn((B, S, D), B * S + 3, dev, dtype)
+    chunked = int(route == "chunked")
+    for init in (h0, None):
+        count = lambda: (linear_scan.launches, linear_scan.bwd_launches,
+                         linear_scan.chunked_launches,
+                         linear_scan.chunked_bwd_launches)
+        before = count()
+        h = kscan._fwd_kernel(a, b, init, route)
+        grads = kscan._bwd_kernel(a, h, init, g, init is not None, route)
+        torch.cuda.synchronize()
+        assert count() == (before[0] + 1, before[1] + 1,
+                           before[2] + chunked, before[3] + chunked)
+        assert torch.equal(h, fwd(a, b, init))
+        want = bwd(a, h, g, init)
+        assert torch.equal(grads[0], want[0]) and torch.equal(grads[1],
+                                                              want[1])
+        if init is not None:
+            assert torch.equal(grads[2], want[2])
+        assert torch.equal(h, kscan._fwd_kernel(a, b, init, route))
+        again = kscan._bwd_kernel(a, h, init, g, init is not None, route)
+        assert all(x is None and y is None or torch.equal(x, y)
+                   for x, y in zip(grads, again))
 
 
 @pytest.mark.cuda

@@ -11,9 +11,11 @@ drawn inside ``jax.threefry_partitionable(False)`` and carried across with
   one target ignored) against ``jax.value_and_grad`` of the reference's
   loss, per leaf: relative error ||g - g_ref|| / ||g_ref|| and cosine.
   Both run the model in bfloat16 with float32 masters; against the
-  reference run op by op (``jax.disable_jit``, attention ``flash_xla``)
-  the worst leaf measured 2.1e-2 and cosine 0.99979, the loss 5.2e-5
-  apart: held at 5e-2, 0.999 and 5e-4. Jitted, XLA's fused blocks round
+  reference run op by op (``jax.disable_jit``, attention ``direct``, whose
+  rounding of p the port's plain attention shares) the worst leaf
+  measured 2.1e-2 and cosine 0.99979, the loss 5.2e-5 apart (against
+  ``flash_xla``, when the port kept p in float32): held at 5e-2, 0.999
+  and 5e-4. Jitted, XLA's fused blocks round
   bfloat16 otherwise (ROADMAP C8): measured 4.8e-2, 0.99887 and 4.4e-4,
   held at 0.1, 0.995 and 2e-3;
 - AdamW and the cosine schedule on identical gradients: 1e-6 (the same
@@ -122,7 +124,7 @@ def test_softmax_xent_matches_reference():
 def _ref_grads(jcfg, P, batch, remat, mb, jit):
     """The reference's loss and gradients, microbatches averaged as its
     scan does (float32 zeros + each, divided by the count)."""
-    impl = "auto" if jit else "flash_xla"
+    impl = "auto" if jit else "direct"
     f = jax.value_and_grad(jstep.make_loss_fn(jcfg, remat=remat,
                                               attn_impl=impl), has_aux=True)
     if jit:
