@@ -1,27 +1,38 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --launch-times SRC
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main path on the card:
 
   1. the card's name and power limit, and the kernel build (``nvcc -Xptxas
      -v``: registers, shared memory and spills);
-  2. the ``ds_estep`` kernel against its plain PyTorch version at the
-     shapes the main path gives it and at edge shapes;
+  2. the ``ds_estep`` kernels against their plain PyTorch version at the
+     shapes the main path gives them and at edge shapes, each shape on its
+     route and, where that is the task route, on the group route too
+     (logp bit-equal, post within tolerance, zero-vote tasks exactly
+     uniform, repeatable), a grid of class and vote counts, and an
+     unaligned idx;
   3. the offline Dawid-Skene EM (full confusion, 20 iterations) on 2^20
-     synthetic tasks, twice, bit for bit, and against the CPU on a slice;
+     synthetic tasks, twice, bit for bit, every E-step on the task route,
+     and against the CPU on a slice;
   4. the streaming labeling service (``skewed_adaptive5`` with the EM
-     refresh every 40 ticks) for 1440 ticks x 256 replications, twice, and
-     its first 8 replications against a CPU run of the port with the same
-     initial state and arrivals;
-  5. timings: the kernel per call (CUDA events) and its device time
-     (``torch.profiler``) beside its bound and its plain version; the
-     stream's ticks per second, and a profiled window of it (kernels and
-     device busy time per tick);
-  6. the ``entropy_scores`` kernel against its plain version at the
+     refresh every 40 ticks) for 1440 ticks x 256 replications, twice, its
+     E-steps on the task route, and its first 8 replications against a CPU
+     run of the port with the same initial state and arrivals;
+  5. timings: the launch floor (a one-element ``zero_()``); the ``ds_estep``
+     routes in turns per call (CUDA events) and on the device
+     (``torch.profiler``) beside the bound and the plain version, at the
+     refresh, offline C4 and offline C8 shapes; the stream's ticks per
+     second, and profiled windows of the
+     offline EM (the E-step's share) and of the stream (kernels and device
+     busy time per tick);
+  6. the ``entropy_scores`` kernels against their plain version at the
      learner's widths, odd shapes, the LM vocab and the learning path's
-     shapes, in float32 and bfloat16, with H in [0, log V];
+     shapes, in float32 and bfloat16, with H in [0, log V], and the narrow
+     route bit-equal to the old narrow kernel (``narrow_v1``) there and
+     over a grid of widths, ragged N and unaligned bases;
   7. the hybrid-learning loop (``run_learning("hybrid_small")``) at 64
      replications x 10 rounds x 60 fit steps, on the workload's own
      dataset and on an MNIST-sized one, twice each, bit for bit, with one
@@ -29,7 +40,8 @@ drives the port's main path on the card:
      replications against a CPU run of the port on the same draws; then
      the timings of phases 6-7: the entropy kernel per call and on the
      device beside its bound, its plain version and
-     ``Categorical.entropy``, replications per second, and a profiled
+     ``Categorical.entropy`` (the narrow route and ``narrow_v1`` in turns
+     at the learning shapes), replications per second, and a profiled
      round (kernels per round, device idle share);
   8. the ``flash_attention`` kernel against its plain version: the
      reference tests' grid in float32 (FMA kernel) and bfloat16
@@ -79,6 +91,11 @@ drives the port's main path on the card:
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
 torch, numpy and the port (``src/repro_torch``), and needs no network.
+
+With ``--launch-times SRC`` it only prints the per-call times of
+``ds_estep`` at the refresh shape and of ``entropy_scores`` at the learning
+shapes through the package under SRC (another commit's ``src`` unpacked
+beside this one, say), to compare two launch paths in turns in one run.
 """
 from __future__ import annotations
 
@@ -212,6 +229,19 @@ def mean_us(events, match):
             sum(len(t) for t in hits.values()))
 
 
+def launch_floor_us() -> float:
+    """The device time of the smallest launch the card makes: a
+    one-element ``zero_()``, by the profiler, averaged over 200 launches."""
+    z = torch.zeros(1, device="cuda")
+
+    def zeros():
+        for _ in range(200):
+            z.zero_()
+    events = kernel_events(zeros)[1]
+    times = [t for ts in events.values() for t in ts]
+    return sum(times) / len(times) if times else float("nan")
+
+
 def estep_bound_ms(B, R, C, T, V):
     """Least time for the E-step on an H100 SXM: every input read once and
     every output written once at the memory rate, or its float32 operations
@@ -328,19 +358,52 @@ def make_estep_inputs(gen, B, W, C, T, V, dev):
     return rows.contiguous(), idx.contiguous()
 
 
+def best_call_us(fn, reps=500, runs=5) -> float:
+    """Per-call time of ``fn()`` in us: CUDA events around ``reps``
+    back-to-back calls, the fastest of ``runs`` runs (host work included,
+    as a caller pays it)."""
+    return 1e3 * min(cuda_ms(fn, reps) for _ in range(runs))
+
+
+def launch_times(src: str):
+    """``python3 chip_smoke.py --launch-times SRC``: the per-call times of
+    ``ds_estep`` at the stream refresh's shape and of ``entropy_scores`` at
+    the learning loop's two shapes, through the port's package under SRC
+    (this checkout's ``src``, or another commit's), so that two commits'
+    launch paths can be compared in turns in one run."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels.ds_estep import ds_estep
+    from repro_torch.kernels.uncertainty import entropy_scores
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows, idx = make_estep_inputs(gen, 512, 9, 2, 32, 5, dev)
+    out = {"src": src, "ds_estep refresh": best_call_us(
+        lambda: ds_estep(rows, idx))}
+    for N, V in ((64 * 1500, 2), (64 * 3000, 10)):
+        x = torch.randn((N, V), generator=gen, device=dev) * 3
+        out[f"entropy ({N}, {V})"] = best_call_us(lambda: entropy_scores(x))
+    print(json.dumps(out), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch reports no CUDA device; nothing to run",
               file=sys.stderr)
         sys.exit(2)
+    if len(sys.argv) == 3 and sys.argv[1] == "--launch-times":
+        launch_times(sys.argv[2])
+        return
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ds_estep import ds_estep, smem_budget
+    from repro_torch.kernels.ds_estep import (
+        ds_estep, estep_route, smem_budget, task_plan as estep_task_plan,
+    )
     from repro_torch.kernels.ref import ds_estep_ref
     from repro_torch.core import simfast
     from repro_torch.data.datasets import mnist_like, train_test_split
     from repro_torch.kernels.ref import entropy_ref
-    from repro_torch.kernels.uncertainty import entropy_scores
+    from repro_torch.kernels.uncertainty import entropy_route, entropy_scores
     from repro_torch.labelstream import aggregate, router
     from repro_torch.learning import linear
     from repro_torch.scenarios import (
@@ -396,43 +459,94 @@ def main():
         for line in log.splitlines():
             if line.strip() and "Compile time" not in line:
                 say(f"[build:{name}] {line.strip()}")
-    say(f"[build] ds_estep stages row tables up to {smem_budget()} bytes "
-        "in shared memory")
+    say(f"[build] ds_estep's group and wide kernels stage row tables up to "
+        f"{smem_budget()} bytes in shared memory; the task route's "
+        "placements (mode, rows staged, idx stages, shared memory bytes): "
+        f"refresh {estep_task_plan(512, 19, 2, 32, 5)}, offline-C4 "
+        f"{estep_task_plan(1, 4097, 4, 1 << 20, 5)}, offline-C8 "
+        f"{estep_task_plan(1, 8193, 8, 1 << 20, 5)}")
 
     # ---- phase 2: kernel vs plain version --------------------------------
+    # every shape on its own route (estep_route) and, where that is the task
+    # route, on the group route too: logp equal to the plain version bit
+    # for bit, post within the reference test's tolerance, a zero-vote task
+    # exactly uniform, a second call equal bit for bit
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     errs = {}
 
-    def compare(label, B, W, C, T, V, atol_lp, atol_p, zero_row=None):
+    def compare(label, B, W, C, T, V, atol_p, zero_row=None, routes=None,
+                quiet=False):
         rows, idx = make_estep_inputs(gen, B, W, C, T, V, dev)
         if zero_row is not None:
             idx[..., zero_row, :] = W * C
-        lp, p = ds_estep(rows, idx)
-        torch.cuda.synchronize()
-        lr, pr = ds_estep_ref(rows, idx)
-        e_lp = (lp - lr).abs().max().item()
-        e_p = (p - pr).abs().max().item()
-        ok = (torch.isfinite(lp).all().item() and e_lp <= atol_lp
-              and e_p <= atol_p)
         R = W * C + 1
-        path = "smem" if R * C * 4 <= smem_budget() else "global"
-        say(f"[estep] {label}: B={B} W={W} C={C} T={T} V={V} ({path}) "
-            f"max|dlogp|={e_lp:.3g} (tol {atol_lp}) max|dpost|={e_p:.3g} "
-            f"(tol {atol_p})")
-        check(ok, f"ds_estep disagrees with its plain version at {label}")
-        if zero_row is not None:
-            check(bool((p[..., zero_row, :] == 1.0 / C).all()),
-                  f"zero-vote task not exactly uniform at {label}")
-        errs[label] = max(e_lp, e_p)
+        Bn = 1 if B is None else B
+        route = estep_route(Bn, R, C, T, V)
+        if routes is None:
+            routes = [route] + (["group"] if route == "task" else [])
+        lr, pr = ds_estep_ref(rows, idx)
+        errs[label] = 0.0
+        for rt in routes:
+            lp, p = ds_estep(rows, idx, _route=rt)
+            torch.cuda.synchronize()
+            e_p = (p - pr).abs().max().item()
+            same_lp = torch.equal(lp, lr)
+            lp2, p2 = ds_estep(rows, idx, _route=rt)
+            again = torch.equal(lp, lp2) and torch.equal(p, p2)
+            plan = estep_task_plan(Bn, R, C, T, V) if rt == "task" else None
+            if not quiet:
+                say(f"[estep] {label}: B={B} W={W} C={C} T={T} V={V} route "
+                    f"{rt}{'' if plan is None else f' {plan}'}: logp "
+                    f"{'bit-equal' if same_lp else 'DIFFERS'}, "
+                    f"max|dpost|={e_p:.3g} (tol {atol_p}), second call "
+                    f"{'bit-equal' if again else 'DIFFERS'}")
+            check(same_lp and e_p <= atol_p and again
+                  and bool(torch.isfinite(lp).all()),
+                  f"ds_estep ({rt}) disagrees with its plain version at "
+                  f"{label}")
+            if zero_row is not None:
+                check(bool((p[..., zero_row, :] == 1.0 / C).all()),
+                      f"zero-vote task not exactly uniform at {label} ({rt})")
+            errs[label] = max(errs[label], e_p)
+        return rows, idx
 
-    compare("9x4x77x5", None, 9, 4, 77, 5, 1e-4, 1e-5, zero_row=7)
-    compare("16x8x512x5", None, 16, 8, 512, 5, 1e-3, 1e-4)
-    compare("C33", None, 5, 33, 301, 4, 1e-4, 1e-5, zero_row=3)
-    compare("C130", 3, 4, 130, 77, 3, 1e-4, 1e-5, zero_row=5)
-    compare("refresh", 512, 9, 2, 32, 5, 1e-4, 1e-5, zero_row=0)
-    compare("offline-C4", None, 1024, 4, 1 << 20, 5, 1e-4, 1e-5)
-    compare("offline-C8", None, 1024, 8, 1 << 20, 5, 1e-4, 1e-5)
+    compare("9x4x77x5", None, 9, 4, 77, 5, 1e-5, zero_row=7)
+    compare("16x8x512x5", None, 16, 8, 512, 5, 1e-4)
+    compare("C33", None, 5, 33, 301, 4, 1e-5, zero_row=3)
+    compare("C130", 3, 4, 130, 77, 3, 1e-5, zero_row=5)
+    compare("refresh", 512, 9, 2, 32, 5, 1e-5, zero_row=0)
+    compare("offline-C4", None, 1024, 4, 1 << 20, 5, 1e-5, zero_row=9)
+    compare("offline-C8", None, 1024, 8, 1 << 20, 5, 1e-5, zero_row=9)
+    # the task route's grid of class and vote counts, ragged T, in block
+    # mode (one table) and warp mode (many small tables)
+    n_grid = 0
+    for C_ in (2, 3, 4, 5, 8):
+        for V_ in (1, 3, 5, 7):
+            for B_, W_, T_ in ((None, 37, 3001), (7, 5, 45)):
+                compare(f"grid C{C_} V{V_} B{B_}", B_, W_, C_, T_, V_, 1e-5,
+                        zero_row=1, quiet=True)
+                n_grid += 1
+    say(f"[estep] grid: {n_grid} shapes (C in 2, 3, 4, 5, 8; V in 1, 3, 5, "
+        f"7; block mode T=3001 and warp mode B=7 T=45) on the task and group "
+        f"routes: logp bit-equal, post within 1e-5, zero-vote tasks exactly "
+        f"uniform, second calls bit-equal")
+    # an idx base off the 16-byte grid, on every route of the offline shapes
+    for label, B_, W_, C_, T_ in (("offline-C4", None, 1024, 4, 1 << 20),
+                                  ("offline-C8", None, 1024, 8, 1 << 20),
+                                  ("refresh", 512, 9, 2, 32)):
+        rows, idx = make_estep_inputs(gen, B_, W_, C_, T_, 5, dev)
+        buf = torch.empty(idx.numel() + 1, dtype=torch.int32, device=dev)
+        off = buf[1:].view(idx.shape)
+        off.copy_(idx)
+        lr, pr = ds_estep_ref(rows, idx)
+        for rt in ("task", "group"):
+            lp, p = ds_estep(rows, off, _route=rt)
+            check(torch.equal(lp, lr) and (p - pr).abs().max().item() <= 1e-5,
+                  f"ds_estep ({rt}) is wrong on an unaligned idx at {label}")
+        say(f"[estep] unaligned idx base at {label}: every route bit-equal "
+            "in logp")
+    del buf, off
 
     # ---- phase 3: offline EM ---------------------------------------------
     T, V, W, C = 1 << 20, 5, 1024, 4
@@ -447,7 +561,7 @@ def main():
     labels = torch.where(right, truth[:, None], other)
     mask = torch.rand((T, V), generator=g, device=dev) < 0.9
     mask[:64] = False                                   # zero-vote tasks
-    ds_estep.launches = 0
+    ds_estep.launches = ds_estep.task_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     em = aggregate.dawid_skene(labels, workers, mask, n_workers=W,
@@ -456,8 +570,10 @@ def main():
     torch.cuda.synchronize()
     em_s = time.perf_counter() - t0
     em_launches = ds_estep.launches
-    check(em_launches == 20, f"offline EM made {em_launches} E-step "
-          "launches, expected 20")
+    em_task = ds_estep.task_launches
+    check(em_launches == 20 and em_task == 20, f"offline EM made "
+          f"{em_launches} E-step launches ({em_task} on the task route), "
+          "expected 20 (all 20)")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     em2 = aggregate.dawid_skene(labels, workers, mask, n_workers=W,
@@ -475,7 +591,8 @@ def main():
     label_acc = (post.argmax(-1) == truth)[64:].float().mean().item()
     acc_err = (em["accuracy"] - acc_w).abs().mean().item()
     say(f"[em] T={T} V={V} W={W} C={C} full confusion x20: {em_s:.3f} s "
-        f"first call, {em2_s:.3f} s second call; launches={em_launches}, "
+        f"first call, {em2_s:.3f} s second call; launches={em_launches} "
+        f"(task route {em_task}), "
         f"label accuracy "
         f"{label_acc:.4f}, mean |acc - true acc| {acc_err:.4f}, repeatable")
     check(label_acc > 0.85, f"offline EM label accuracy {label_acc}")
@@ -497,16 +614,17 @@ def main():
                             {"refresh_every": 40, "refresh_iters": 6})
     H, N, SEED = 1440, 256, 0
     n_refresh = H // cfg.refresh_every
-    ds_estep.launches = 0
+    ds_estep.launches = ds_estep.task_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = router.run_stream(cfg, H, n_reps=N, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     stream_launches = ds_estep.launches
-    check(stream_launches == n_refresh * cfg.refresh_iters,
-          f"stream made {stream_launches} E-step launches, expected "
-          f"{n_refresh * cfg.refresh_iters}")
+    stream_task = ds_estep.task_launches
+    check(stream_launches == stream_task == n_refresh * cfg.refresh_iters,
+          f"stream made {stream_launches} E-step launches ({stream_task} on "
+          f"the task route), expected {n_refresh * cfg.refresh_iters}")
     ints = [k for k, v in out.items() if torch.is_tensor(v)
             and not v.is_floating_point()]
     total = lambda k: int(out[k].sum().item())
@@ -516,7 +634,7 @@ def main():
     say(f"[stream] {cfg.n_shards * N} shard-replications x {H} ticks: "
         f"{stream_s:.2f} s wall ({H / stream_s:.1f} ticks/s), "
         f"ds_estep launches={stream_launches} ({n_refresh} refreshes x "
-        f"{cfg.refresh_iters} iterations)")
+        f"{cfg.refresh_iters} iterations; task route {stream_task})")
     say(f"[stream] conservation: arrived {lhs} == done {total('done_all')} "
         f"+ backlog {total('backlog_end')} + in flight "
         f"{total('in_flight_end')} + dropped {total('dropped')}")
@@ -587,33 +705,50 @@ def main():
     # ---- phase 5: timings ------------------------------------------------
     # per call: CUDA events around back-to-back calls (what a caller pays,
     # launch overhead included); device: the kernel's own device time from
-    # the profiler
+    # the profiler (mean over the launches it recorded). The routes run in
+    # turns (new, old, old, new) on the same inputs; the bound is the
+    # card's least time for the work, and a tiny shape is judged against
+    # the larger of its bound and the launch floor
+    floor_us = launch_floor_us()
+    say(f"[time] launch floor: a one-element zero_() takes {floor_us:.2f} us "
+        f"on the device (profiler, mean of 200 launches); {card}")
     timings = {}
-    for label, B, W_, C_, T_, V_ in (
-            ("refresh", 512, 9, 2, 32, 5),
-            ("offline-C4", None, 1024, 4, 1 << 20, 5),
-            ("offline-C8", None, 1024, 8, 1 << 20, 5)):
+    turns = ("task", "group", "group", "task")
+    for label, B, W_, C_, T_, V_, order in (
+            ("refresh", 512, 9, 2, 32, 5, turns),
+            ("offline-C4", None, 1024, 4, 1 << 20, 5, turns),
+            ("offline-C8", None, 1024, 8, 1 << 20, 5, turns)):
         rows, idx = make_estep_inputs(gen, B, W_, C_, T_, V_, dev)
         reps = 200 if label == "refresh" else 50
-        ms = cuda_ms(lambda: ds_estep(rows, idx), reps)
-        plain = cuda_ms(lambda: ds_estep_ref(rows, idx), reps)
-
-        def many():
-            for _ in range(reps):
-                ds_estep(rows, idx)
-        _, n_k, busy, by_name = device_profile(many)
-        dev_us = sum(v for k, v in by_name.items() if "ds_estep" in k) / reps
         Bn = 1 if B is None else B
-        bound, by, nbytes = estep_bound_ms(Bn, W_ * C_ + 1, C_, T_, V_)
-        timings[label] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+        R_ = W_ * C_ + 1
+        bound, by, nbytes = estep_bound_ms(Bn, R_, C_, T_, V_)
+        seen = {}
+        for rt in order:
+            ms = cuda_ms(lambda: ds_estep(rows, idx, _route=rt), reps)
+
+            def many():
+                for _ in range(reps):
+                    ds_estep(rows, idx, _route=rt)
+            dev_us, _ = mean_us(kernel_events(many)[1], "ds_estep")
+            seen.setdefault(rt, []).append((ms, dev_us))
+        plain = cuda_ms(lambda: ds_estep_ref(rows, idx), reps)
+        res = {rt: (float(np.mean([m for m, _ in v])),
+                    float(np.mean([d for _, d in v])))
+               for rt, v in seen.items()}
+        timings[label] = dict(ms=res["task"][0], dev_us=res["task"][1],
+                              routes=res, plain_ms=plain, bound_ms=bound,
                               bound_by=by, bytes=nbytes)
-        dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}"
-                   f"% of bound)" if dev_us > 0 else "device time not "
-                   "measured (no device events in the profile)")
-        say(f"[time] ds_estep {label} (B={Bn}, T={T_}, V={V_}, "
-            f"R={W_ * C_ + 1}, C={C_}): per call {ms * 1e3:.2f} us, "
-            f"{dev_txt}, plain per call {plain * 1e3:.2f} us, bound "
-            f"{bound * 1e3:.3f} us ({by}, {nbytes} B); {card}")
+        for rt, (ms, dev_us) in res.items():
+            share = (f"{bound * 1e3 / dev_us * 100:.1f}% of bound"
+                     if dev_us > 0 else "device time not measured")
+            turns_txt = ", ".join(f"{d:.2f}" for _, d in seen[rt])
+            say(f"[time] ds_estep {label} (B={Bn}, T={T_}, V={V_}, R={R_}, "
+                f"C={C_}) route {rt}: per call {ms * 1e3:.2f} us, device "
+                f"{dev_us:.2f} us ({share}; turns {turns_txt}); bound "
+                f"{bound * 1e3:.3f} us ({by}, {nbytes} B), launch floor "
+                f"{floor_us:.2f} us; plain per call {plain * 1e3:.2f} us; "
+                f"{card}")
     say(f"[time] stream {H / stream_s:.1f} ticks/s wall ({N} reps x "
         f"{cfg.n_shards} shards, refresh every {cfg.refresh_every}, first "
         f"run); {card}")
@@ -623,9 +758,11 @@ def main():
                                       n_classes=C, iters=2, one_coin=False,
                                       device=dev))
     if n_k:
+        e_us = sum(v for k, v in by_name.items() if "ds_estep" in k)
         say(f"[profile] offline EM, 2 iterations: {wall * 1e3:.1f} ms wall "
             f"with the profiler on, {n_k} kernels, device busy "
-            f"{busy / 1e3:.1f} ms; {card}")
+            f"{busy / 1e3:.1f} ms, of which the E-step {e_us:.1f} us "
+            f"({e_us / busy * 100:.2f}%); {card}")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
             say(f"[profile]   {us / 2e3:8.2f} ms/iteration  {name[:90]}")
     else:
@@ -672,6 +809,8 @@ def main():
                     "learn-hybrid": (64 * 1500, 2)}
     ent_cases += [(label, N, V, f32, 1e-4, 1e-4)
                   for label, (N, V) in LEARN_SHAPES.items()]
+    # the narrow route (V <= 64) is also held bit for bit against the old
+    # narrow kernel (route narrow_v1)
     ent_inputs, ent_errs = {}, {}
     for label, N, V, dt, atol, rtol in ent_cases:
         x = (torch.randn((N, V), generator=gen, device=dev) * 3).to(dt)
@@ -680,15 +819,44 @@ def main():
         want = entropy_ref(x)
         err = (h - want).abs().max().item()
         lo, hi = h.min().item(), h.max().item()
+        narrow = entropy_route(V, dt) == "narrow"
+        same_v1 = narrow and torch.equal(h, entropy_scores(
+            x, _route="narrow_v1"))
         ok = (bool(torch.isfinite(h).all()) and tuple(h.shape) == (N,)
               and bool(torch.allclose(h, want, atol=atol, rtol=rtol))
-              and lo >= 0.0 and hi <= math.log(V) + 1e-3)
-        say(f"[entropy] {label}: max|dH|={err:.3g} (atol {atol}, rtol "
-            f"{rtol}), H in [{lo:.4g}, {hi:.4g}], log V={math.log(V):.4g}")
-        check(ok, f"entropy kernel disagrees with its plain version at "
-              f"{label}")
+              and lo >= 0.0 and hi <= math.log(V) + 1e-3
+              and same_v1 == narrow)
+        say(f"[entropy] {label} (route {entropy_route(V, dt)}): max|dH|="
+            f"{err:.3g} (atol {atol}, rtol {rtol}), H in [{lo:.4g}, "
+            f"{hi:.4g}], log V={math.log(V):.4g}"
+            + (", bit-equal to narrow_v1" if same_v1 else ""))
+        check(ok, f"entropy kernel disagrees with its plain version (or the "
+              f"old narrow kernel) at {label}")
         ent_inputs[label] = x
         ent_errs[label] = err
+    # the narrow route's widths, ragged N, both dtypes, on an aligned and
+    # an unaligned base: bit-equal to narrow_v1, within the plain version's
+    # odd-shape tolerance
+    n_narrow, worst = 0, 0.0
+    for V in (1, 2, 3, 10, 16, 17, 33, 48, 64):
+        for N in (1000, 70001):
+            for dt in (f32, bf16):
+                buf = (torch.randn((N * V + 1,), generator=gen, device=dev)
+                       * 3).to(dt)
+                atol, rtol = odd_tol(dt)
+                for x in (buf[:-1].view(N, V), buf[1:].view(N, V)):
+                    h = entropy_scores(x)
+                    old = entropy_scores(x, _route="narrow_v1")
+                    want = entropy_ref(x)
+                    check(torch.equal(h, old) and bool(torch.allclose(
+                        h, want, atol=atol, rtol=rtol)),
+                        f"narrow entropy kernel wrong at ({N}, {V}) {dt}, "
+                        f"base {x.data_ptr() % 16}")
+                    worst = max(worst, (h - want).abs().max().item())
+                    n_narrow += 1
+    say(f"[entropy] narrow grid: {n_narrow} cases (V in 1, 2, 3, 10, 16, 17, "
+        f"33, 48, 64; N 1000 and 70001; f32 and bf16; aligned and unaligned "
+        f"bases) bit-equal to narrow_v1; max|dH| vs plain {worst:.3g}")
     # a base address off the 16-byte grid, and leading dims
     buf = torch.randn((4 * 33 * 777 + 1,), generator=gen, device=dev) * 3
     x = buf[1:].view(4, 33, 777)
@@ -834,38 +1002,52 @@ def main():
         f"{'bit-equal' if same_main else 'differs'}")
 
     # ---- timings of phases 6-7 ------------------------------------------
+    # at the learning shapes the new narrow kernel and the old one
+    # (narrow_v1) in turns (new, old, old, new) on the same inputs
     ent_t = {}
     for label, N, V, dt, _, _ in ent_cases:
         x = ent_inputs[label]
         reps = 20 if N * V > 10 ** 7 else 100
-        ms = cuda_ms(lambda: entropy_scores(x), reps)
+        route = entropy_route(V, dt)
+        order = ((route, "narrow_v1", "narrow_v1", route)
+                 if label in LEARN_SHAPES else (route,))
+        seen = {}
+        for rt in order:
+            ms = cuda_ms(lambda: entropy_scores(x, _route=rt), reps)
+
+            def many():
+                for _ in range(reps):
+                    entropy_scores(x, _route=rt)
+            dev_us, _ = mean_us(kernel_events(many)[1], "entropy")
+            seen.setdefault(rt, []).append((ms, dev_us))
         plain = cuda_ms(lambda: entropy_ref(x), reps)
         lib = cuda_ms(lambda: torch.distributions.Categorical(
             logits=x, validate_args=False).entropy(), reps)
 
-        def many():
-            for _ in range(reps):
-                entropy_scores(x)
-
         def many_plain():
             for _ in range(reps):
                 entropy_ref(x)
-        _, _, _, by_name = device_profile(many)
-        dev_us = sum(v for k, v in by_name.items() if "entropy" in k) / reps
         _, _, plain_busy, _ = device_profile(many_plain)
         elt = 2 if dt == bf16 else 4
         bound, by, nbytes = entropy_bound_ms(N, V, elt)
-        ent_t[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                            bound_ms=bound, bound_by=by, dev_us=dev_us)
-        dev_txt = (f"device {dev_us:.2f} us ({bound * 1e3 / dev_us * 100:.1f}"
-                   f"% of bound)" if dev_us > 0 else "device time not "
-                   "measured (no device events in the profile)")
-        say(f"[time] entropy {label} (N={N}, V={V}): per call "
-            f"{ms * 1e3:.2f} us, {dev_txt}, plain per call "
-            f"{plain * 1e3:.2f} us (device {plain_busy / reps:.2f} us), "
-            f"Categorical.entropy per call "
-            f"{lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}, "
-            f"{nbytes} B); {card}")
+        res = {rt: (float(np.mean([m for m, _ in v])),
+                    float(np.mean([d for _, d in v])))
+               for rt, v in seen.items()}
+        ent_t[label] = dict(ms=res[route][0], dev_us=res[route][1],
+                            routes=res, plain_ms=plain, library_ms=lib,
+                            bound_ms=bound, bound_by=by)
+        for rt, (ms, dev_us) in res.items():
+            share = bound * 1e3 / dev_us * 100 if dev_us > 0 else 0.0
+            dev_txt = (f"device {dev_us:.2f} us ({share:.1f}% of bound; turns "
+                       f"{', '.join(f'{d:.2f}' for _, d in seen[rt])})"
+                       if dev_us > 0 else "device time not measured (no "
+                       "device events in the profile)")
+            say(f"[time] entropy {label} (N={N}, V={V}) route {rt}: per call "
+                f"{ms * 1e3:.2f} us, {dev_txt}, plain per call "
+                f"{plain * 1e3:.2f} us (device {plain_busy / reps:.2f} us), "
+                f"Categorical.entropy per call "
+                f"{lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}, "
+                f"{nbytes} B), launch floor {floor_us:.2f} us; {card}")
     for label, res in learn.items():
         say(f"[time] learning {label}: {res['reps_per_s']:.2f} replications/s "
             f"({R7} reps x {ROUNDS} rounds in {res['wall']:.3f} s wall, "
@@ -2095,6 +2277,12 @@ def main():
     check(lm_launches[1] - lm_chunked > 0 and scan_ch[0] > 0
           and scan_ch[1] > 0 and scan_r[1] > 0, "a linear_scan kernel of "
           "the main paths was not launched")
+    # ds_estep: the public call at the stream's refresh shape (the task
+    # route's warp mode), and the task kernel at the offline EM's C4 shape
+    # (block mode, the table in shared memory); entropy_scores: the narrow
+    # route at the two learning shapes
+    t_off = timings["offline-C4"]
+    e_mnist = ent_t["learn-mnist"]
     say(json.dumps({"kernels": [{
         "name": "ds_estep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ds_estep.cu",
@@ -2104,6 +2292,14 @@ def main():
         "ms": t_main["ms"], "plain_ms": t_main["plain_ms"],
         "bound_ms": t_main["bound_ms"], "bound_by": t_main["bound_by"],
         "library_ms": None}, {
+        "name": "ds_estep_task", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ds_estep.cu",
+        "replaces": "src/repro/kernels/ds_estep.py:58",
+        "launches": em_task,
+        "max_abs_err": errs["offline-C4"],
+        "ms": t_off["ms"], "plain_ms": t_off["plain_ms"],
+        "bound_ms": t_off["bound_ms"], "bound_by": t_off["bound_by"],
+        "library_ms": None}, {
         "name": "entropy_scores", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/entropy.cu",
         "replaces": "src/repro/kernels/uncertainty.py:55",
@@ -2112,6 +2308,14 @@ def main():
         "ms": e_main["ms"], "plain_ms": e_main["plain_ms"],
         "bound_ms": e_main["bound_ms"], "bound_by": e_main["bound_by"],
         "library_ms": e_main["library_ms"]}, {
+        "name": "entropy_scores_narrow", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/entropy.cu",
+        "replaces": "src/repro/kernels/uncertainty.py:55",
+        "launches": learn_launches["mnist_like"],
+        "max_abs_err": ent_errs["learn-mnist"],
+        "ms": e_mnist["ms"], "plain_ms": e_mnist["plain_ms"],
+        "bound_ms": e_mnist["bound_ms"], "bound_by": e_mnist["bound_by"],
+        "library_ms": e_mnist["library_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",

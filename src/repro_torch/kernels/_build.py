@@ -5,9 +5,10 @@ into ``build/repro_torch_kernels/lib<name>-<hash>.so`` at the repository
 root (``build/`` is git-ignored). The hash is of the source and the shared
 ``csrc/*.cuh`` headers, so an edited source or header never reuses a stale
 library. :func:`build` starts one ``nvcc`` per source, all at once, and
-waits for them together; :func:`load` builds on first use. Nothing here
-runs at import time: the CPU tests import every module of the port on
-machines without ``nvcc``.
+waits for them together; :func:`load` builds on first use; :func:`launch`
+calls a loaded entry point on a card's current stream. Nothing here runs
+at import time: the CPU tests import every module of the port on machines
+without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
@@ -28,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict = {}
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 # nvcc's output per source (``-Xptxas -v``: registers, shared memory and
 # spills of every kernel), kept for the smoke run to print
 build_logs: dict = {}
@@ -91,3 +95,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build((name,))[name]))
         _libs[name] = lib
     return lib
+
+
+def _stream(index: int) -> int:
+    """PyTorch's current stream on card ``index``, as an integer handle."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(fn, dev: torch.device, *args) -> int:
+    """Call the C entry point ``fn(*args, stream)`` with card ``dev``
+    current, ``stream`` being PyTorch's current stream there as one
+    integer; returns ``fn``'s error code. ``torch.cuda.device`` is entered
+    only when ``dev`` is not the current card already."""
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    if index == current:
+        return fn(*args, _stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, _stream(index))

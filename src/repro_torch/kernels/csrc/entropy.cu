@@ -24,11 +24,18 @@
 //
 // Design for this card rather than the TPU block (the TPU kernel pads both
 // axes to 256 x 512 tiles; nothing here is padded, tails are masked):
-//  * narrow rows (V <= 64, the learner's 2..64 classes): each warp copies
-//    the 32*V contiguous values of 32 rows into shared memory with coalesced
-//    loads (row stride V|1, odd, so the lanes below hit distinct banks), then
-//    each lane reduces one row in two passes over shared memory: its max,
-//    then Z and S;
+//  * narrow rows (V <= 64, the learner's 2..64 classes), each lane or
+//    thread reducing one row in two passes, its max, then Z and S:
+//      - up to 16 wide (the learning loop's 2 and 10 classes): a thread per
+//        row reads it twice through L1, with no staging; at the learning
+//        shapes every row is in flight in one wave, so a pipeline across
+//        tiles has nothing to overlap;
+//      - 17..64 wide: entropy_narrow, where each warp copies the 32*V
+//        contiguous values of 32 rows into shared memory with coalesced
+//        loads (row stride V|1, odd, so the lanes hit distinct banks) and
+//        each lane then reduces one row from there;
+//    route narrow_v1 forces entropy_narrow at any V <= 64, for comparison;
+//    both kernels give the same bits;
 //  * wide rows (V > 64, up to the LM vocab 50304): a group of G warps per row
 //    (G = 1, 2, 4 or 8, the least that puts enough warps in flight for N
 //    rows), 16-byte vector loads from the first 16-byte boundary of the row
@@ -45,12 +52,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_cache.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;              // wide kernel: 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kNarrowWarps = 4;            // narrow kernel: 4 warps
+constexpr int kNarrowWarps = 4;            // narrow_v1 kernel: 4 warps
 constexpr int kNarrowMax = 64;             // widest row of the narrow path
+constexpr int kRowsMax = 16;               // widest row of the rows kernel
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Stat {
@@ -159,6 +169,27 @@ entropy_narrow(const T* __restrict__ x, float* __restrict__ out, long long N,
   }
 }
 
+// Narrow rows up to kRowsMax wide: a thread per row, read twice through L1,
+// with the arithmetic of entropy_narrow.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+entropy_narrow_rows(const T* __restrict__ x, float* __restrict__ out,
+                    long long N, int V) {
+  const long long row = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (row >= N) return;
+  const T* rp = x + row * V;
+  float m = to_f(__ldg(rp));
+  for (int c = 1; c < V; ++c) m = fmaxf(m, to_f(__ldg(rp + c)));
+  Stat st{m, 0.f, 0.f};
+  for (int c = 0; c < V; ++c) {
+    const float d = to_f(__ldg(rp + c)) - m;
+    const float e = __expf(d);
+    st.z += e;
+    st.s = fmaf(e, d, st.s);
+  }
+  out[row] = finish(st);
+}
+
 // One thread's share of a row: elements r, r + g, r + 2g, ... of the scalar
 // head, of the 16-byte vectors, and of the scalar tail.
 template <typename T>
@@ -229,25 +260,34 @@ entropy_wide(const T* __restrict__ x, float* __restrict__ out, long long N,
   if (row < N && wig == 0 && lane == 0) out[row] = finish(st);
 }
 
+// route: 0 narrow (V <= 64: the rows kernel up to kRowsMax, else
+// entropy_narrow), 1 wide, 2 narrow_v1 (entropy_narrow, V <= 64)
 template <typename T>
-cudaError_t launch(const void* x, float* out, long long N, int V,
+cudaError_t launch(const void* x, float* out, long long N, int V, int route,
                    cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  if (V <= kNarrowMax) {
+  if (route == 0 && V <= kRowsMax) {
+    const long long blocks = (N + kThreads - 1) / kThreads;
+    entropy_narrow_rows<T><<<(unsigned)blocks, kThreads, 0, st>>>(xt, out,
+                                                                  N, V);
+    return cudaSuccess;
+  }
+  if (route == 0 || route == 2) {
+    if (V > kNarrowMax) return cudaErrorInvalidValue;
     const int smem = kNarrowWarps * 32 * (V | 1) * (int)sizeof(float);
     const long long blocks = (N + kNarrowWarps * 32 - 1) / (kNarrowWarps * 32);
     entropy_narrow<T><<<(unsigned)blocks, kNarrowWarps * 32, smem, st>>>(
         xt, out, N, V);
     return cudaSuccess;
   }
+  if (route != 1) return cudaErrorInvalidValue;
+  int dev = 0;
+  launch_cache::Device d{};
+  const cudaError_t err = launch_cache::device(&dev, &d);
+  if (err != cudaSuccess) return err;
   // enough warps in flight to cover the card's memory latency: up to 64
   // resident warps on each SM
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const long long want = 64LL * sms;
+  const long long want = 64LL * d.sms;
   constexpr int K = 16 / sizeof(T);
   int G = 1;
   while (G < kWarps && N * G < want && V >= G * 2 * 32 * K * 4) G <<= 1;
@@ -262,19 +302,21 @@ cudaError_t launch(const void* x, float* out, long long N, int V,
 extern "C" {
 
 // x (N, V) contiguous, float32 (dtype 0) or bfloat16 (dtype 1), out (N,)
-// float32, both on the current device, N >= 1 and V >= 1. Launches on
-// `stream` and returns cudaGetLastError() (0 on success); it never
-// synchronises.
+// float32, both on the current device, N >= 1 and V >= 1; route 0 narrow
+// and 2 narrow_v1 take V <= 64, route 1 (wide) any V
+// (kernels/uncertainty.py::entropy_route). Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue where the
+// route cannot take the shape; it never synchronises.
 int entropy_rows(const void* x, float* out, long long N, int V, int dtype,
-                 void* stream) {
+                 int route, void* stream) {
   if (N <= 0 || V <= 0) return 0;
   if (N > 0x7fffffffLL * kNarrowWarps) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch<float>(x, out, N, V, st);
+    err = launch<float>(x, out, N, V, route, st);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16>(x, out, N, V, st);
+    err = launch<__nv_bfloat16>(x, out, N, V, route, st);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -48,15 +48,20 @@ from repro.kernels.linear_scan import linear_scan as jax_scan  # noqa: E402
 from repro.kernels.xent import streaming_xent as jax_xent  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels.ds_estep import ds_estep  # noqa: E402
+from repro_torch.kernels.ds_estep import (  # noqa: E402
+    ROUTES as ESTEP_ROUTES, ds_estep, estep_route,
+)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.linear_scan import (  # noqa: E402
     ROUTES, SEQUENTIAL_MAX_STEPS, linear_scan, scan_route,
 )
 from repro_torch.kernels.ref import (  # noqa: E402
-    SCAN_CHUNK, attention_bwd_ref, attention_ref, ds_estep_ref,
+    SCAN_CHUNK, attention_bwd_ref, attention_ref, ds_estep_ref, entropy_ref,
     linear_scan_bwd_ref, linear_scan_chunked_bwd_ref, linear_scan_chunked_ref,
     linear_scan_ref, xent_bwd_ref, xent_ref,
+)
+from repro_torch.kernels.uncertainty import (  # noqa: E402
+    ROUTES as ENTROPY_ROUTES, entropy_route, entropy_scores,
 )
 from repro_torch.kernels.xent import streaming_xent  # noqa: E402
 
@@ -99,6 +104,125 @@ def test_ds_estep_plain_matches_jax(W, C, T, V, B):
             np.testing.assert_allclose(got_p, np.asarray(want_p), atol=1e-5)
         np.testing.assert_allclose(got_p[7 % T], 1.0 / C, atol=1e-7)
         np.testing.assert_allclose(got_lp[7 % T], -math.log(C), atol=1e-6)
+
+
+def _task_softmax(logp):
+    """The task kernel's softmax, op by op in float32: a sequential max
+    over the classes, e_c = exp(logp_c - m), s = e_0 + e_1 + ... in class
+    order, post = e_c / s."""
+    C = logp.shape[-1]
+    m = logp[..., 0]
+    for c in range(1, C):
+        m = torch.maximum(m, logp[..., c])
+    e = [torch.exp(logp[..., c] - m) for c in range(C)]
+    s = e[0]
+    for c in range(1, C):
+        s = s + e[c]
+    return torch.stack([x / s for x in e], -1)
+
+
+# SHAPES at their tolerances, then offline-sized tables (W = 1024) at T =
+# 4096 for the class counts the offline EM and the stream run
+EMUL_SHAPES = ([(W, C, T, V, B, 1e-4 if (W, C, T) == (16, 8, 512) else 1e-5)
+                for W, C, T, V, B in SHAPES]
+               + [(1024, C, 4096, 5, None, 1e-5) for C in (2, 4, 8)])
+
+
+@pytest.mark.parametrize("W,C,T,V,B,tol", EMUL_SHAPES)
+def test_ds_estep_task_softmax_order_holds_the_card_tolerance(W, C, T, V, B,
+                                                              tol):
+    """The task kernel takes its softmax in another order than
+    ``torch.softmax``; emulated on the CPU, that order stays within the
+    card's post tolerance of ``ds_estep_ref``, and a zero-vote task stays
+    exactly uniform."""
+    rows, idx = _inputs(W, C, T, V, seed=W + C + T, B=B)
+    lr, pr = ds_estep_ref(torch.from_numpy(rows), torch.from_numpy(idx))
+    pe = _task_softmax(lr)
+    assert (pe - pr).abs().max().item() <= tol
+    assert torch.equal(pe[..., 7 % T, :],
+                       torch.full_like(pe[..., 7 % T, :], 1.0 / C))
+
+
+def test_estep_and_entropy_routes_are_functions_of_shape(monkeypatch):
+    """The routes read the shape (and the dtype) only: no device argument,
+    and the same answer whether or not torch sees a card."""
+    import inspect
+    assert list(inspect.signature(estep_route).parameters) == [
+        "B", "R", "C", "T", "V"]
+    assert list(inspect.signature(entropy_route).parameters) == [
+        "V", "dtype"]
+    cases = {(1, 4097, 4, 1 << 20, 5): "task", (1, 8193, 8, 1 << 20, 5):
+             "task", (512, 19, 2, 32, 5): "task", (1, 10, 1, 7, 32): "task",
+             (1, 10, 8, 7, 33): "group", (1, 37, 9, 77, 5): "group",
+             (3, 129, 32, 77, 3): "group", (3, 521, 130, 77, 3): "wide"}
+    ent = {(2, torch.float32): "narrow", (64, torch.bfloat16): "narrow",
+           (65, torch.float32): "wide", (50304, torch.bfloat16): "wide"}
+
+    def routes():
+        return ({c: estep_route(*c) for c in cases},
+                {c: entropy_route(*c) for c in ent})
+    assert routes() == (cases, ent)
+
+    def no_device(*_a, **_k):
+        raise AssertionError("a route asked about a device")
+    monkeypatch.setattr(torch.cuda, "is_available", no_device)
+    monkeypatch.setattr(torch.cuda, "device_count", no_device)
+    monkeypatch.setattr(torch.cuda, "current_device", no_device)
+    assert routes() == (cases, ent)
+    assert set(cases.values()) <= set(ESTEP_ROUTES)
+    assert set(ent.values()) <= set(ENTROPY_ROUTES)
+    with pytest.raises(TypeError):
+        entropy_route(10, torch.float64)
+
+
+@pytest.mark.parametrize("route", [None] + sorted(ESTEP_ROUTES))
+def test_ds_estep_wrapper_on_cpu_ignores_the_route(route):
+    """CPU tensors take ``ds_estep_ref`` whatever ``_route`` says, and no
+    launch is counted; so does ``entropy_scores`` with ``entropy_ref``."""
+    rows, idx = _inputs(9, 4, 77, 5, seed=2, B=3)
+    r, i = torch.from_numpy(rows), torch.from_numpy(idx)
+    before = (ds_estep.launches, ds_estep.task_launches,
+              entropy_scores.launches)
+    lp, p = ds_estep(r, i, _route=route)
+    lr, pr = ds_estep_ref(r, i)
+    assert torch.equal(lp, lr) and torch.equal(p, pr)
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(33, 10)).astype(np.float32))
+    for er in [None] + sorted(ENTROPY_ROUTES):
+        assert torch.equal(entropy_scores(x, _route=er), entropy_ref(x))
+    assert (ds_estep.launches, ds_estep.task_launches,
+            entropy_scores.launches) == before
+
+
+@pytest.mark.parametrize("current", [0, 1])
+def test_launch_enters_the_device_only_when_not_current(monkeypatch,
+                                                        current):
+    """``_build.launch`` passes the card's current stream to the entry
+    point as its last argument and returns its error code; it enters
+    ``torch.cuda.device`` only when the tensor's card is not the current
+    one."""
+    entered = []
+
+    class Device:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            entered.append(self.index)
+
+        def __exit__(self, *exc):
+            return False
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(_build, "_stream", lambda index: 1000 + index)
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return 7
+    assert _build.launch(fn, torch.device("cuda", 1), "a", 2) == 7
+    assert calls == [("a", 2, 1001)]
+    assert entered == ([] if current == 1 else [1])
 
 
 def test_ds_estep_zero_votes_is_uniform():

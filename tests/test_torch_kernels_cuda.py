@@ -14,7 +14,7 @@ import torch
 
 import repro_torch.kernels.flash_attention as kflash
 import repro_torch.kernels.linear_scan as kscan
-from repro_torch.kernels.ds_estep import ds_estep
+from repro_torch.kernels.ds_estep import ds_estep, estep_route, task_plan
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.linear_scan import linear_scan
 from repro_torch.kernels.ref import (
@@ -90,6 +90,116 @@ def test_ds_estep_wrapper_rejects_bad_inputs():
         ds_estep(rows, idx.t())
     with pytest.raises(ValueError):
         ds_estep(rows, idx.cpu())
+
+
+# (B, W, C, T, V): the task route's grid of class and vote counts, each in
+# block mode (one table, a ragged T) and in warp mode (many small tables),
+# the offline shapes (the table in shared memory at C = 4, too large for it
+# at C = 8) and the refresh's
+TASK_SHAPES = (
+    [(None, 37, C, 3001, V) for C in (2, 3, 4, 5, 8) for V in (1, 3, 5, 7)]
+    + [(7, 5, C, 45, V) for C in (2, 3, 4, 5, 8) for V in (1, 3, 5, 7)]
+    + [(None, 1024, 4, 1 << 20, 5), (None, 1024, 8, 1 << 20, 5),
+       (512, 9, 2, 32, 5), (3, 300, 6, 70000, 5)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,W,C,T,V", TASK_SHAPES)
+@pytest.mark.parametrize("route", ["task", "group"])
+def test_ds_estep_routes_match_plain(route, B, W, C, T, V):
+    """Both routes at C <= 8: logp equal to the plain version bit for bit,
+    post within the reference test's 1e-5, a zero-vote task exactly
+    uniform, a second call equal bit for bit, one launch counted (a task
+    launch on the task route only)."""
+    dev = _card()
+    rows, idx = _inputs(B, W, C, T, V, seed=W * C + T + V, dev=dev)
+    idx[..., 1, :] = W * C                      # a zero-vote task
+    assert estep_route(1 if B is None else B, W * C + 1, C, T, V) == "task"
+    before = (ds_estep.launches, ds_estep.task_launches)
+    lp, p = ds_estep(rows, idx, _route=route)
+    torch.cuda.synchronize()
+    assert (ds_estep.launches, ds_estep.task_launches) == (
+        before[0] + 1, before[1] + (route == "task"))
+    lr, pr = ds_estep_ref(rows, idx)
+    assert torch.equal(lp, lr)
+    assert (p - pr).abs().max().item() <= 1e-5
+    assert bool((p[..., 1, :] == 1.0 / C).all())
+    lp2, p2 = ds_estep(rows, idx, _route=route)
+    assert torch.equal(lp, lp2) and torch.equal(p, p2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4, 8])
+def test_ds_estep_task_placements_match_plain(C):
+    """The task route's placement of a table too large for one block's
+    shared memory (W = 1024 at C = 8; W = 4096 at C = 4): its first rows
+    there and the rest in L2; and an idx base off the 16-byte grid."""
+    dev = _card()
+    W = 1024 if C == 8 else 4096
+    rows, idx = _inputs(None, W, C, 20001, 5, seed=C, dev=dev)
+    plan = task_plan(1, W * C + 1, C, 20001, 5)
+    assert plan is not None and plan[0] == "l2" and 0 < plan[1] < W * C + 1
+    lp, p = ds_estep(rows, idx)
+    lr, pr = ds_estep_ref(rows, idx)
+    assert torch.equal(lp, lr) and (p - pr).abs().max().item() <= 1e-5
+    buf = torch.empty(idx.numel() + 1, dtype=torch.int32, device=dev)
+    off = buf[1:].view(idx.shape)
+    off.copy_(idx)
+    assert off.data_ptr() % 16 != 0
+    lo, po = ds_estep(rows, off)
+    assert torch.equal(lo, lr) and torch.equal(po, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(None, 3001), (7, 45)])
+def test_ds_estep_task_unaligned_and_out_of_range(B, T):
+    """Block and warp mode: an idx base one element into its storage gives
+    the same bits; indices outside [0, R) read as the null row."""
+    dev = _card()
+    rows, idx = _inputs(B, 9, 4, T, 5, seed=T, dev=dev)
+    want = ds_estep(rows, idx)
+    buf = torch.empty(idx.numel() + 1, dtype=torch.int32, device=dev)
+    off = buf[1:].view(idx.shape)
+    off.copy_(idx)
+    got = ds_estep(rows, off)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    bad = idx.clone()
+    bad[..., 2, 0] = -3
+    bad[..., 3, 1] = 9 * 4 + 1
+    null = idx.clone()
+    null[..., 2, 0] = 9 * 4
+    null[..., 3, 1] = 9 * 4
+    lb, pb = ds_estep(rows, bad)
+    ln, pn = ds_estep_ref(rows, null)
+    assert torch.equal(lb, ln) and (pb - pn).abs().max().item() <= 1e-5
+
+
+# V up to the narrow route's 64 (the rows kernel to 16, entropy_narrow
+# above), ragged N, both dtypes
+NARROW_GRID = [(N, V, dt) for V in (1, 2, 3, 10, 16, 17, 33, 48, 64)
+               for N in (1, 31, 1000, 70001)
+               for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V,dtype", NARROW_GRID)
+def test_entropy_narrow_matches_v1_and_plain(N, V, dtype):
+    """The narrow route's kernels give the old narrow kernel's bits, and
+    hold to the plain version (1e-4 in float32, 2e-2 in bfloat16, as
+    tests/test_learning.py), on an aligned and on an unaligned base."""
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(N + V)
+    buf = (torch.randn((N * V + 1,), generator=g, device=dev) * 3).to(dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for x in (buf[:-1].view(N, V), buf[1:].view(N, V)):
+        before = entropy_scores.launches
+        h = entropy_scores(x)
+        assert entropy_scores.launches == before + 1
+        old = entropy_scores(x, _route="narrow_v1")
+        torch.cuda.synchronize()
+        assert torch.equal(h, old)
+        torch.testing.assert_close(h, entropy_ref(x), atol=tol, rtol=tol)
 
 
 # (N, V, dtype, atol, rtol): the learner widths of tests/test_kernels.py
