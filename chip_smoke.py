@@ -86,7 +86,20 @@ drives the port's main path on the card:
      memory, a profiled step, and the step profiled again with the scans
      on the sequential route and back; a reduced model
      on the card against the CPU; a crash, restore and continue at reduced
-     size equal to a straight run.
+     size equal to a straight run;
+ 14. the learner-aware stream tick at phase 4's scale (1440 ticks x 256
+     replications): (a) ``skewed_learner_fused`` (the learner fused into
+     the posterior, uncertainty-first routing) with the EM refresh, (b)
+     ``chance_hard`` (scored routing) with ``uncertain_learnable``
+     admission (the learnability head), (c) ``stream_sharded`` (8 shards,
+     pressure stealing) for 480 ticks and (d) the same at 20x its rate for
+     480 ticks, where shards do steal; each twice, bit for bit in every integer
+     output, conservation exact, (a)'s 216 E-steps on the task route,
+     ``model_known > 0`` with the learner, as much stolen as donated, and
+     the first 8 replications equal to a CPU run of the port on the same
+     initial state and arrivals (else the first differing tick and state
+     are named); ticks per second, and a profiled 80-tick window of (a)
+     and (b).
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -363,6 +376,171 @@ def best_call_us(fn, reps=500, runs=5) -> float:
     back-to-back calls, the fastest of ``runs`` runs (host work included,
     as a caller pays it)."""
     return 1e3 * min(cuda_ms(fn, reps) for _ in range(runs))
+
+
+def flat_state(part) -> dict:
+    """A run-state part (a dict of tensors, learners among them) as one flat
+    dict of tensors; {} for None."""
+    flat = {}
+    for k, v in (part or {}).items():
+        if torch.is_tensor(v):
+            flat[k] = v
+        else:
+            flat.update({f"{k}.{f}": x for f, x in zip(v._fields, v)})
+    return flat
+
+
+def stream_learner_phase(card: str):
+    """Phase 14: the learner-aware stream tick on the card (see the module
+    docstring); fails at the first check that does not hold."""
+    from repro_torch.kernels.ds_estep import ds_estep
+    from repro_torch.labelstream import router
+    from repro_torch.labelstream.arrivals import ArrivalConfig
+    from repro_torch.labelstream.routing import RoutingConfig
+    from repro_torch.scenarios import get_stream_config
+
+    H, N, SEED, n8 = 1440, 256, 0, 8
+    refresh = {"refresh_every": 40, "refresh_iters": 6}
+    runs = [
+        ("a", "skewed_learner_fused with the refresh",
+         get_stream_config("skewed_learner_fused", refresh), H),
+        ("b", "chance_hard with uncertain_learnable admission",
+         get_stream_config("chance_hard", {"routing": RoutingConfig(
+             enabled=True, admission="uncertain_learnable")}), H),
+        # (c) and (d) run a third of the horizon, to keep the smoke run
+        # within half its time limit
+        ("c", "stream_sharded (8 shards, pressure stealing), horizon cut "
+         f"to {H // 3} ticks",
+         get_stream_config("stream_sharded"), H // 3),
+        # the registry's stream_sharded never builds a backlog, so nothing
+        # is stolen; at 20x its rate shards do steal
+        ("d", "stream_sharded at 20x its rate (stealing under load), "
+         f"horizon cut to {H // 3} ticks",
+         get_stream_config("stream_sharded", {"arrivals": ArrivalConfig(
+             kind="poisson", rate=0.8)}), H // 3),
+    ]
+    tick_us = {}
+    for label, what, cfg, h in runs:
+        tag = f"[learner-stream {label}]"
+        n_refresh = h // cfg.refresh_every if cfg.refresh_every else 0
+        ds_estep.launches = ds_estep.task_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = router.run_stream(cfg, h, n_reps=N, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, task = ds_estep.launches, ds_estep.task_launches
+        check(launches == task == n_refresh * cfg.refresh_iters,
+              f"{tag} made {launches} E-step launches ({task} on the task "
+              f"route), expected {n_refresh * cfg.refresh_iters}")
+        total = lambda k: int(out[k].sum().item())
+        lhs = total("arrived")
+        rhs = (total("done_all") + total("backlog_end")
+               + total("in_flight_end") + total("dropped"))
+        say(f"{tag} {what}: {N} reps x {cfg.n_shards} shards x {h} ticks in "
+            f"{secs:.2f} s ({h / secs:.1f} ticks/s, first run); ds_estep "
+            f"launches {launches} (task route {task}); model_known "
+            f"{total('model_known')}, stolen {total('stolen')}, donated "
+            f"{total('donated')}; {card}")
+        say(f"{tag} conservation: arrived {lhs} == done {total('done_all')} "
+            f"+ backlog {total('backlog_end')} + in flight "
+            f"{total('in_flight_end')} + dropped {total('dropped')}")
+        check(lhs == rhs, f"{tag} conservation fails")
+        check(total("stolen") == total("donated"),
+              f"{tag} stolen {total('stolen')} != donated "
+              f"{total('donated')}")
+        if cfg.learner.enabled:
+            check(total("model_known") > 0, f"{tag} model_known is 0")
+        if label == "d":
+            check(total("stolen") > 0, f"{tag} nothing was stolen")
+        ints = lambda o: {
+            **{k: v for k, v in o.items() if torch.is_tensor(v)
+               and not v.is_floating_point()},
+            **{f"series.{k}": v for k, v in o["series"].items()},
+            **{f"per_shard.{k}": v for k, v in o["per_shard"].items()}}
+        out2 = router.run_stream(cfg, h, n_reps=N, seed=SEED, device="cuda")
+        first, second = ints(out), ints(out2)
+        diff = [k for k in first if not torch.equal(first[k], second[k])]
+        check(not diff, f"{tag} is not repeatable on the card: {diff}")
+        say(f"{tag} second run with the same seed: every integer output "
+            "equal")
+        summ = router.stream_summary(cfg, out)
+        say(f"{tag} summary " + json.dumps(summ, sort_keys=True))
+        for k in ("sustained_rate", "accuracy", "mean_tis", "cost"):
+            check(math.isfinite(summ[k]) and summ[k] > 0,
+                  f"{tag} summary {k}={summ[k]}")
+
+        # the first 8 replications against the port on the CPU, on the same
+        # initial state and arrivals
+        ws, banks, seeds = router.draw_init(cfg, N, SEED)
+        sub = lambda d: {k: v[:n8] for k, v in d.items()}
+        n_new, n_arr = router.draw_arrivals(cfg, h, N, seed=SEED,
+                                            device="cuda")
+        arr8 = (n_new[:, :n8].cpu(), n_arr[:, :n8].cpu())
+        t0 = time.perf_counter()
+        ref = router.run_stream(
+            cfg, h, n_reps=n8, device="cpu",
+            init=router.state_from_numpy(cfg, sub(ws), sub(banks),
+                                         seeds[:n8], "cpu"),
+            arrivals=arr8)
+        cpu_s = time.perf_counter() - t0
+        mine = {k: v[:n8].cpu() for k, v in first.items()}
+        theirs = ints(ref)
+        cpu_diff = [k for k in mine if not torch.equal(mine[k], theirs[k])]
+        if cpu_diff:
+            tick = h
+            for k in ("finalized", "backlog", "in_flight"):
+                neq = (mine[f"series.{k}"] != theirs[f"series.{k}"]).any(0)
+                if neq.any():
+                    tick = min(tick, int(neq.nonzero()[0]))
+            say(f"{tag} card vs CPU (8 reps): integer outputs differ in "
+                f"{cpu_diff}; first differing tick {tick}")
+            if tick < h:
+                # the cause: rerun both to that tick and name the state
+                # that differs first
+                warm = float(np.float32(0.3 * h * cfg.dt))
+                st = {}
+                for d in ("cuda", "cpu"):
+                    init = router.state_from_numpy(
+                        cfg, sub(ws), sub(banks), seeds[:n8], d)
+                    _, st[d] = router._run_one(
+                        cfg, tick + 1, init, warm, 1.0, None,
+                        (arr8[0][:tick + 1], arr8[1][:tick + 1]))
+                for part in ("ws", "win", "bl", "learner"):
+                    a, b = (flat_state(st[d][part]) for d in ("cuda", "cpu"))
+                    for k, va in a.items():
+                        vb = b[k]
+                        if not torch.equal(va.cpu(), vb):
+                            dv = (va.cpu().double() - vb.double()).abs()
+                            dv = dv[torch.isfinite(dv)]
+                            say(f"{tag}   cause at tick {tick}: {part}.{k} "
+                                f"differs (max |d| "
+                                f"{dv.max().item() if dv.numel() else 'n/a'})")
+            fail(f"{tag} card and CPU integer outputs differ")
+        say(f"{tag} card vs CPU ({n8} reps, {h} ticks): every integer "
+            f"output equal (CPU run {cpu_s:.1f} s)")
+        tick_us[label] = 1e6 * secs / h
+
+    # where a tick's time goes: 80 ticks of (a) and (b) under the profiler
+    for label, _, cfg, _ in runs[:2]:
+        Hp = 80
+        wall, n_k, busy, by_name = device_profile(
+            lambda: router.run_stream(cfg, Hp, n_reps=N, seed=SEED + 1,
+                                      device="cuda"))
+        if n_k:
+            say(f"[profile] learner-stream {label}, {Hp} ticks: "
+                f"{n_k / Hp:.0f} kernels per tick, device busy "
+                f"{busy / Hp:.0f} us per tick; wall per tick "
+                f"{wall / Hp * 1e6:.0f} us with the profiler on, "
+                f"{tick_us[label]:.0f} us without: device idle "
+                f"{(1 - busy / Hp / tick_us[label]) * 100:.1f}% of the "
+                f"unprofiled tick; {card}")
+            for name, us in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1])[:6]:
+                say(f"[profile]   {us / Hp:8.1f} us/tick  {name[:90]}")
+        else:
+            say(f"[profile] learner-stream {label}: device time not "
+                "measured (no device events)")
 
 
 def launch_times(src: str):
@@ -2277,6 +2455,11 @@ def main():
     check(lm_launches[1] - lm_chunked > 0 and scan_ch[0] > 0
           and scan_ch[1] > 0 and scan_r[1] > 0, "a linear_scan kernel of "
           "the main paths was not launched")
+    # ---- phase 14: the learner-aware stream tick --------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream_learner_phase(card)
+
     # ds_estep: the public call at the stream's refresh shape (the task
     # route's warp mode), and the task kernel at the offline EM's C4 shape
     # (block mode, the table in shared memory); entropy_scores: the narrow

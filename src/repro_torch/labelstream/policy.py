@@ -65,8 +65,12 @@ def should_finalize(log_posterior, n_votes, pol: PolicyConfig, cap=None):
 
 def fuse_posteriors(crowd_logpost, model_logpost, weight):
     """Product-of-experts fusion of crowd and learner log-posteriors; the
-    learner's contribution is scaled by ``weight``."""
-    return crowd_logpost + weight * model_logpost
+    learner's contribution is scaled by ``weight`` (a float32 tensor that
+    broadcasts, or a number). Rounded as the reference's CPU build rounds
+    it, one fma: the product is exact in float64 and the sum rounds once."""
+    w = torch.as_tensor(weight, dtype=torch.float32,
+                        device=model_logpost.device).double()
+    return (crowd_logpost.double() + w * model_logpost.double()).float()
 
 
 def learner_known(fused_logpost, n_votes, *, threshold: float,

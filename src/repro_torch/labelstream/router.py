@@ -1,34 +1,48 @@
 """Streaming router: ring-buffer task window over sharded retainer pools.
 
-Port of the FIFO path of ``src/repro/labelstream/router.py``. Tasks arrive
-continuously (arrivals.py), queue in a per-shard backlog FIFO, are admitted
-into a fixed-size ring-buffer window of ``window`` slots per shard, are
-labeled by that shard's retainer pool, and are finalized by the
+Port of the single-device tick of ``src/repro/labelstream/router.py``.
+Tasks arrive continuously (arrivals.py), queue in a per-shard backlog, are
+admitted into a fixed-size ring-buffer window of ``window`` slots per shard,
+are labeled by that shard's retainer pool, and are finalized by the
 adaptive-redundancy policy (policy.py) on their running Dawid-Skene
-posterior. Every ``refresh_every`` ticks the exact offline full-confusion
-EM (aggregate.py) re-explains the window's vote log: one batched E-step
-kernel launch per EM iteration for all replications x shards.
+posterior. Every ``refresh_every`` ticks the exact offline full-confusion EM
+(aggregate.py) re-explains the window's vote log: one batched E-step kernel
+launch per EM iteration for all replications x shards.
+
+With ``learner.enabled`` tasks carry Gaussian feature vectors, a linear
+learner per replication (shared by its shards, ``repro_torch.learning``)
+trains online on finalized tasks from a replay ring, and its log-posterior
+is fused into each task's posterior: model-known tasks finalize after
+``min_votes_known`` votes, and votes go to the most uncertain tasks first.
+``routing.enabled`` matches workers to tasks by score (routing.py);
+``routing.admission`` other than ``"fifo"`` draws task identity at arrival
+into a slot-array backlog and admits the most uncertain (or uncertain and
+learnable) tasks first. ``sharding.steal="pressure"`` moves the oldest
+backlog entries of hot shards to starved ones of the same replication
+after every tick.
 
 Layout: every per-shard tensor has a leading dimension ``B = n_reps *
-n_shards`` (replication-major) in place of the reference's two ``vmap``s,
-and the tick loop is a Python loop over ``_shard_tick``. Per-tick control
-flow never waits for the device: the refresh cadence is a host integer
-test and nothing in the tick calls ``.item()``.
+n_shards`` (replication-major) in place of the reference's two ``vmap``s;
+the learner's tensors lead with ``n_reps``. The tick loop is a Python loop
+over ``_shard_tick``. Per-tick control flow never waits for the device: the
+refresh and fit cadences are host integer tests and nothing in the tick
+calls ``.item()``.
 
 Randomness: the tick's own draws come from the counter-based ``lowbias32``
 hash of ``(seed, step)`` (bit-exact with the reference); the worker banks
 and seeds are drawn once on the host with a seeded ``numpy`` generator, and
 per-tick arrivals with a ``torch.Generator`` on the run's device. For
 parity tests, :func:`state_from_numpy` takes the reference's initial state
-and :func:`run_stream` takes injected arrival counts.
+(and, optionally, a learner state) and :func:`run_stream` takes injected
+arrival counts.
 
-Not yet ported (the config validator refuses them): the learner, scored
-routing and learner-driven admission, work stealing, device sharding,
-trace buffers and serve mode.
+Not yet ported (the config validator refuses them): LM task features,
+device sharding, trace buffers and serve mode.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -47,15 +61,22 @@ from repro_torch.labelstream.arrivals import (
     ArrivalConfig, init_arrival_state, sample_arrivals,
 )
 from repro_torch.labelstream.policy import (
-    PolicyConfig, should_finalize, target_outstanding,
+    PolicyConfig, confidence, fuse_posteriors, learner_known,
+    should_finalize, target_outstanding, uncertainty,
 )
-from repro_torch.labelstream.routing import RoutingConfig
+from repro_torch.labelstream.routing import (
+    RoutingConfig, admit_scores, admit_select, learnability_features,
+    route_scores, scored_match,
+)
+from repro_torch.learning import linear
+from repro_torch.learning.linear import ordered_matmul
 
 
 @dataclasses.dataclass(frozen=True)
 class StreamLearnerConfig:
     """Streaming hybrid learning knobs; fields and defaults as in the
-    reference. Only ``enabled=False`` runs in the port so far."""
+    reference. ``feature_kind="lm"`` (LM embeddings from a bank) is not
+    ported yet."""
     enabled: bool = False
     n_features: int = 8
     class_sep: float = 1.8
@@ -77,8 +98,8 @@ class StreamLearnerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShardingConfig:
-    """Device topology for the streaming tick; only the single-device,
-    no-stealing default runs in the port so far."""
+    """Device topology for the streaming tick. ``steal="pressure"`` runs on
+    one device; ``n_devices > 1`` is not ported yet."""
     n_devices: int = 1
     steal: str = "none"           # "none" | "pressure"
     steal_max: int = 4            # max tasks a donor shard exports per tick
@@ -163,7 +184,7 @@ class StreamConfig:
 def _init_window(cfg: StreamConfig, B: int, device):
     Ws, C, cap = cfg.window, cfg.n_classes, cfg.policy.votes_cap
     z = dict(device=device)
-    return dict(
+    win = dict(
         active=torch.zeros((B, Ws), dtype=torch.bool, **z),
         arrival_t=torch.zeros((B, Ws), **z),
         difficulty=torch.ones((B, Ws), **z),
@@ -174,13 +195,45 @@ def _init_window(cfg: StreamConfig, B: int, device):
         vote_wid=torch.zeros((B, Ws + 1, cap), dtype=torch.int64, **z),
         vote_lab=torch.zeros((B, Ws + 1, cap), dtype=torch.int64, **z),
     )
+    if cfg.learner.enabled:
+        win["feat"] = torch.zeros((B, Ws, cfg.learner.n_features), **z)
+    return win
 
 
 def _init_backlog(cfg: StreamConfig, B: int, device):
+    Q, z = cfg.backlog, dict(device=device)
+    if cfg.routing.admission != "fifo":
+        # slot-array backlog: task identity (difficulty, label, features) is
+        # drawn at ARRIVAL so admission can rank by model uncertainty; row Q
+        # is the dump row of masked writes
+        return dict(times=torch.zeros((B, Q + 1), **z),
+                    diff=torch.ones((B, Q + 1), **z),
+                    tlab=torch.zeros((B, Q + 1), dtype=torch.int64, **z),
+                    feat=torch.zeros((B, Q + 1, cfg.learner.n_features), **z),
+                    occ=torch.zeros((B, Q), dtype=torch.bool, **z),
+                    count=torch.zeros((B,), dtype=torch.int64, **z))
     # FIFO ring of arrival times; slot Q is the dump slot of masked writes
-    return dict(times=torch.zeros((B, cfg.backlog + 1), device=device),
-                head=torch.zeros((B,), dtype=torch.int64, device=device),
-                count=torch.zeros((B,), dtype=torch.int64, device=device))
+    return dict(times=torch.zeros((B, Q + 1), **z),
+                head=torch.zeros((B,), dtype=torch.int64, **z),
+                count=torch.zeros((B,), dtype=torch.int64, **z))
+
+
+def _init_learner(cfg: StreamConfig, n_reps: int, device):
+    """One learner per replication, shared by its shards, and the replay
+    ring of finalized (features, label) pairs (row ``buffer`` is the dump
+    row); under ``uncertain_learnable`` also the learnability head over
+    square-augmented features and its targets."""
+    L, z = cfg.learner, dict(device=device)
+    ls = dict(
+        learn=linear.init(L.n_features, cfg.n_classes, (n_reps,), device),
+        buf_X=torch.zeros((n_reps, L.buffer + 1, L.n_features), **z),
+        buf_y=torch.zeros((n_reps, L.buffer + 1), dtype=torch.int64, **z),
+        buf_n=torch.zeros((n_reps,), dtype=torch.int64, **z))
+    if cfg.routing.admission == "uncertain_learnable":
+        ls["learn2"] = linear.init(2 * L.n_features, 2, (n_reps,), device)
+        ls["buf_t"] = torch.zeros((n_reps, L.buffer + 1), dtype=torch.int64,
+                                  **z)
+    return ls
 
 
 def _init_shard(cfg: StreamConfig, rng: np.random.Generator, lead):
@@ -216,14 +269,46 @@ def _tensor(a, B: int, device):
         (B,) + a.shape[2:])
 
 
+def _learner_from_numpy(cfg: StreamConfig, learner: dict, n_reps: int,
+                        device):
+    """The learner state from numpy arrays with leading dim ``n_reps``:
+    ``learn`` (and, under ``uncertain_learnable``, ``learn2``) as the seven
+    ``LinearLearner`` leaves, and the ring ``buf_X``, ``buf_y``, ``buf_n``
+    (and ``buf_t``)."""
+    keys = ["learn", "buf_X", "buf_y", "buf_n"]
+    if cfg.routing.admission == "uncertain_learnable":
+        keys += ["learn2", "buf_t"]
+    missing = [k for k in keys if k not in learner]
+    if missing:
+        raise ValueError(f"learner state lacks {missing}")
+    ls = {}
+    for k in keys:
+        if k in ("learn", "learn2"):
+            ls[k] = linear.from_numpy(learner[k], device)
+            lead = ls[k].W.shape[:-2]
+        else:
+            a = np.asarray(learner[k])
+            ls[k] = torch.tensor(
+                a.astype(np.int64) if np.issubdtype(a.dtype, np.integer)
+                else a.astype(np.float32), device=device)
+            lead = ls[k].shape[:1]
+        if tuple(lead) != (n_reps,):
+            raise ValueError(f"learner state {k!r} leads with {tuple(lead)}, "
+                             f"expected ({n_reps},)")
+    return ls
+
+
 def state_from_numpy(cfg: StreamConfig, ws: dict, banks: dict, seeds,
-                     device="cuda"):
+                     device="cuda", learner: Optional[dict] = None):
     """The port's run state from per-shard initial state given as numpy
     arrays with leading dims ``(n_reps, n_shards)``: the worker state of
     ``_init_shard`` (the reference's or the port's), its banks, and the
-    ``uint32`` per-shard counter seeds. Window and backlog start empty.
-    Returns a dict with ``ws``, ``banks``, ``win``, ``bl`` and ``seeds``,
-    every tensor flattened to ``B = n_reps * n_shards`` on ``device``."""
+    ``uint32`` per-shard counter seeds. Window and backlog start empty; the
+    learner (``learner.enabled``) starts untrained unless ``learner`` gives
+    its state (see :func:`_learner_from_numpy`). Returns a dict with
+    ``ws``, ``banks``, ``win``, ``bl``, ``seeds`` and ``learner`` (None
+    without one), per-shard tensors flattened to ``B = n_reps * n_shards``
+    on ``device``."""
     dev = resolve_device(device)
     seeds = np.asarray(seeds)
     if seeds.ndim != 2 or seeds.shape[1] != cfg.n_shards:
@@ -234,11 +319,18 @@ def state_from_numpy(cfg: StreamConfig, ws: dict, banks: dict, seeds,
     missing = [k for k in _WS_KEYS if k not in ws]
     if missing:
         raise ValueError(f"worker state lacks {missing}")
+    if not cfg.learner.enabled:
+        ls = None
+    elif learner is None:
+        ls = _init_learner(cfg, n_reps, dev)
+    else:
+        ls = _learner_from_numpy(cfg, learner, n_reps, dev)
     return dict(
         ws={k: _tensor(ws[k], B, dev) for k in _WS_KEYS},
         banks={k: _tensor(banks[k], B, dev) for k in ("mu", "sigma", "acc")},
         win=_init_window(cfg, B, dev), bl=_init_backlog(cfg, B, dev),
-        seeds=_tensor(seeds.astype(np.uint32).astype(np.int64), B, dev))
+        seeds=_tensor(seeds.astype(np.uint32).astype(np.int64), B, dev),
+        learner=ls)
 
 
 # --------------------------------------------------------------------------
@@ -247,33 +339,36 @@ def state_from_numpy(cfg: StreamConfig, ws: dict, banks: dict, seeds,
 
 def _acc_hat(cfg: StreamConfig, ws):
     """Beta-smoothed clipped online worker-accuracy estimate — the quantity
-    that weights online Dawid-Skene votes."""
+    that weights online Dawid-Skene votes and feeds the routing accuracy
+    axis."""
     return torch.clamp(
         (cfg.est_prior_acc * cfg.est_prior_n + ws["est_correct"])
         / (cfg.est_prior_n + ws["est_n"]), 0.52, 0.995)
 
 
-def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
-                step: int, seed, warmup_t: float):
-    """Advance every shard by one tick. ``n_arr`` (B,) are this tick's
-    arrivals per shard, ``t`` the tick's time and ``step`` its index (host
-    numbers), ``seed`` (B,) the counter seeds. Returns ``(ws, win, bl,
-    metrics)``."""
-    P, Ws, C = cfg.pool_size, cfg.window, cfg.n_classes
-    Q, M, cap = cfg.backlog, cfg.max_arrivals_per_tick, cfg.policy.votes_cap
-    pol, fast, R = cfg.policy, cfg.fast, cfg.routing
-    dev = seed.device
-    B = seed.shape[0]
-    up = _uniform_block(seed, step, 8 * P).reshape(B, 8, P)
+def _task_features(u1, u2, tl, diff, L: StreamLearnerConfig, C: int):
+    """Class-conditional Gaussian features (one-hot class means scaled by
+    ``class_sep``, unit Box-Muller noise from the uniforms ``u1``, ``u2``
+    (..., F)) for tasks with true labels ``tl`` (...). With
+    ``hard_sep_scale != 1`` hard tasks (``diff < 1``) get their separation
+    scaled by it."""
+    nrm = torch.sqrt(-2.0 * torch.log1p(-u1)) * torch.cos(2.0 * math.pi * u2)
+    means = L.class_sep * torch.eye(C, L.n_features, device=u1.device)
+    base = means[tl]
+    if L.hard_sep_scale != 1.0:
+        base = base * torch.where(diff < 1.0, L.hard_sep_scale, 1.0)[..., None]
+    return base + nrm
 
-    # ---- backlog push + admission into free window slots -----------------
-    free = ~win["active"]
-    if cfg.batch_replay:
-        # naive fixed-batch replay: refill only once the window is drained
-        gate = free.all(-1)
-    else:
-        gate = torch.ones((B,), dtype=torch.bool, device=dev)
-    frank = torch.cumsum(free.to(torch.int64), -1) - 1
+
+def _admit_fifo(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
+                seed):
+    """FIFO ring push of this tick's arrivals and admission of the oldest
+    into the free window slots; task identity (difficulty, label, features)
+    is drawn at admission. Returns ``(bl, dropped, admit, arr_t, diff, tl,
+    featw)``; ``featw`` is None without the learner."""
+    Ws, C, Q, M = cfg.window, cfg.n_classes, cfg.backlog, \
+        cfg.max_arrivals_per_tick
+    L, B, dev = cfg.learner, seed.shape[0], seed.device
     space = Q - bl["count"]
     n_push = torch.minimum(n_arr, space)
     dropped = n_arr - n_push
@@ -288,11 +383,108 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     arr_t = torch.gather(bl_times, 1, src)
     bl = dict(times=bl_times, head=(bl["head"] + n_adm) % Q,
               count=bl_count - n_adm)
-    bl_count = bl["count"]
     # fresh-task draws at ADMISSION (difficulty mixture + label)
     uw = _uniform_block(seed ^ 0x33CC33CC, step, 2 * Ws).reshape(B, 2, Ws)
     diff = torch.where(uw[:, 0] < cfg.p_hard, cfg.hard_scale, 1.0)
     tl = torch.clamp(torch.floor(uw[:, 1] * C).to(torch.int64), 0, C - 1)
+    featw = None
+    if L.enabled:
+        F = L.n_features
+        uf = _uniform_block(seed ^ 0x5EEDF00D, step, 2 * Ws * F
+                            ).reshape(B, 2, Ws, F)
+        featw = _task_features(uf[:, 0], uf[:, 1], tl, diff, L, C)
+    return bl, dropped, admit, arr_t, diff, tl, featw
+
+
+def _admit_ranked(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
+                  seed, lp):
+    """Learner-driven admission: this tick's arrivals draw their identity
+    (difficulty, label, features) now and take the free slots of the
+    slot-array backlog (the i-th arrival the i-th free slot); queued tasks
+    enter the window most uncertain first under the current model (times
+    the learnability head's estimate under ``uncertain_learnable``), ties
+    in slot order. Returns what :func:`_admit_fifo` does."""
+    C, Q, M = cfg.n_classes, cfg.backlog, cfg.max_arrivals_per_tick
+    L, R, B, dev = cfg.learner, cfg.routing, seed.shape[0], seed.device
+    F = L.n_features
+    occ = bl["occ"]
+    space = Q - occ.sum(-1)
+    n_push = torch.minimum(n_arr, space)
+    dropped = n_arr - n_push
+    slot = torch.arange(M, device=dev)
+    # i-th arrival -> i-th free backlog slot (searchsorted rank trick)
+    csum = torch.cumsum((~occ).to(torch.int64), -1)
+    dst = torch.searchsorted(csum, (slot + 1).expand(B, M).contiguous())
+    ok = slot < n_push[:, None]
+    dstw = torch.where(ok, dst, Q)                   # row Q is the dump row
+    ua = _uniform_block(seed ^ 0x0BAD5EED, step, (2 + 2 * F) * M
+                        ).reshape(B, 2 + 2 * F, M)
+    diff_a = torch.where(ua[:, 0] < cfg.p_hard, cfg.hard_scale, 1.0)
+    tl_a = torch.clamp(torch.floor(ua[:, 1] * C).to(torch.int64), 0, C - 1)
+    feat_a = _task_features(ua[:, 2:2 + F].transpose(1, 2),
+                            ua[:, 2 + F:].transpose(1, 2), tl_a, diff_a, L, C)
+    # the dump row keeps its initial values, so the state stays the same
+    # from run to run whatever order duplicate writes land in
+    bl_times = bl["times"].scatter(1, dstw, torch.where(ok, t, 0.0))
+    bl_diff = bl["diff"].scatter(1, dstw, torch.where(ok, diff_a, 1.0))
+    bl_tlab = bl["tlab"].scatter(1, dstw, torch.where(ok, tl_a, 0))
+    bl_feat = bl["feat"].scatter(
+        1, dstw[..., None].expand(B, M, F),
+        torch.where(ok[..., None], feat_a, 0.0))
+    occ = torch.cat([occ, torch.zeros((B, 1), dtype=torch.bool, device=dev)],
+                    1).scatter(1, dstw, True)[:, :Q]
+    n_adm = torch.where(gate, torch.minimum(occ.sum(-1), free.sum(-1)), 0)
+    u_bl = uncertainty(ordered_matmul(bl_feat[:, :Q], lp["lW"])
+                       + lp["lb"][:, None, :])
+    if R.admission == "uncertain_learnable":
+        adm_key = admit_scores(u_bl, bl_feat[:, :Q], lp["gW"], lp["gb"])
+    else:
+        adm_key = u_bl
+    admit_bl, order = admit_select(adm_key, occ, n_adm)
+    admit = free & (frank < n_adm[:, None])
+    # the r-th free window slot takes the r-th most uncertain queued task
+    src = torch.where(admit, torch.gather(order, 1, frank.clamp(0, Q - 1)),
+                      Q)
+    arr_t = torch.gather(bl_times, 1, src)
+    diff = torch.gather(bl_diff, 1, src)
+    tl = torch.gather(bl_tlab, 1, src)
+    featw = torch.gather(bl_feat, 1, src[..., None].expand(-1, -1, F))
+    occ = occ & ~admit_bl
+    bl = dict(times=bl_times, diff=bl_diff, tlab=bl_tlab, feat=bl_feat,
+              occ=occ, count=occ.sum(-1))
+    return bl, dropped, admit, arr_t, diff, tl, featw
+
+
+def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
+                step: int, seed, warmup_t: float, lp: Optional[dict] = None):
+    """Advance every shard by one tick. ``n_arr`` (B,) are this tick's
+    arrivals per shard, ``t`` the tick's time and ``step`` its index (host
+    numbers), ``seed`` (B,) the counter seeds, ``lp`` the learner's
+    parameters expanded to B (:func:`_learner_tick_params`; None without a
+    learner). Returns ``(ws, win, bl, metrics, train)``; ``train`` holds
+    the finalized examples for the learner's ring (None without one)."""
+    P, Ws, C = cfg.pool_size, cfg.window, cfg.n_classes
+    cap = cfg.policy.votes_cap
+    pol, fast, L, R = cfg.policy, cfg.fast, cfg.learner, cfg.routing
+    dev = seed.device
+    B = seed.shape[0]
+    up = _uniform_block(seed, step, 8 * P).reshape(B, 8, P)
+
+    # ---- backlog push + admission into free window slots -----------------
+    free = ~win["active"]
+    if cfg.batch_replay:
+        # naive fixed-batch replay: refill only once the window is drained
+        gate = free.all(-1)
+    else:
+        gate = torch.ones((B,), dtype=torch.bool, device=dev)
+    frank = torch.cumsum(free.to(torch.int64), -1) - 1
+    if R.admission != "fifo":
+        bl, dropped, admit, arr_t, diff, tl, featw = _admit_ranked(
+            cfg, bl, n_arr, free, frank, gate, t, step, seed, lp)
+    else:
+        bl, dropped, admit, arr_t, diff, tl, featw = _admit_fifo(
+            cfg, bl, n_arr, free, frank, gate, t, step, seed)
+    bl_count = bl["count"]
     win = dict(win)
     win["active"] = win["active"] | admit
     win["arrival_t"] = torch.where(admit, arr_t, win["arrival_t"])
@@ -300,6 +492,8 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     win["true_label"] = torch.where(admit, tl, win["true_label"])
     win["n_votes"] = torch.where(admit, 0, win["n_votes"])
     win["logpost"] = torch.where(admit[..., None], 0.0, win["logpost"])
+    if L.enabled:
+        win["feat"] = torch.where(admit[..., None], featw, win["feat"])
 
     # ---- completions -> votes -> online posterior -----------------------
     ws = dict(ws)
@@ -337,11 +531,11 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     # online DS E-step: add the voter's estimated log-odds to the voted class
     a_e = _acc_hat(cfg, ws)
     delta = torch.log(a_e * max(C - 1, 1) / (1.0 - a_e))
-    lp = torch.cat([win["logpost"],
-                    torch.zeros((B, 1, C), device=dev)], 1).reshape(B, -1)
-    win["logpost"] = _add_at(lp, tid_k * C + label,
-                               torch.where(keep, delta, 0.0)
-                               ).reshape(B, Ws + 1, C)[:, :Ws]
+    lp_all = torch.cat([win["logpost"],
+                        torch.zeros((B, 1, C), device=dev)], 1).reshape(B, -1)
+    win["logpost"] = _add_at(lp_all, tid_k * C + label,
+                             torch.where(keep, delta, 0.0)
+                             ).reshape(B, Ws + 1, C)[:, :Ws]
     win["n_votes"] = win["n_votes"] + _count_rows(
         Ws + 1, torch.where(keep, tid_k, Ws))[:, :Ws]
 
@@ -362,9 +556,24 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
         ws["est_correct"] = em["accuracy"][:, :P] * vpw
         ws["est_n"] = vpw
 
+    # ---- learner fusion (product of experts) ----------------------------
+    # the policy reads the crowd posterior fused with the learner's: tasks
+    # the model already knows finalize after min_votes_known crowd votes
+    if L.enabled:
+        model_lg = ordered_matmul(win["feat"], lp["lW"]) + lp["lb"][:, None]
+        fused = fuse_posteriors(win["logpost"],
+                                torch.log_softmax(model_lg, dim=-1),
+                                lp["fuse_w"][:, None, None])
+        known, known_fin = learner_known(
+            fused, win["n_votes"], threshold=L.known_threshold,
+            min_votes_known=L.min_votes_known)
+    else:
+        fused = win["logpost"]
+
     # ---- finalization (adaptive redundancy) -----------------------------
-    fused = win["logpost"]
     fin, _conf = should_finalize(fused, win["n_votes"], pol)
+    if L.enabled:
+        fin = fin | known_fin
     fin = fin & win["active"]
     result = fused.argmax(-1)
     tis = torch.where(fin, t - win["arrival_t"], 0.0)
@@ -402,7 +611,7 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     ws["comp_sum"] = ws["comp_sum"] + lat * comp
     ws["comp_sqsum"] = ws["comp_sqsum"] + lat * lat * comp
     ws["term_sum"] = ws["term_sum"] + winner * lose
-    # completion-latency EWMA (the routing speed axis, kept for parity)
+    # completion-latency EWMA: the routing speed axis (route_scores)
     ws["lat_ewma"] = torch.where(
         comp, (1.0 - R.ewma_alpha) * ws["lat_ewma"] + R.ewma_alpha * lat,
         ws["lat_ewma"])
@@ -433,6 +642,11 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     n_asg = _count_rows(Ws + 1, torch.where(ws["assigned"] >= 0,
                                             ws["assigned"], Ws))[:, :Ws]
     want = target_outstanding(win["n_votes"], pol)
+    if L.enabled:
+        # a model-known task requests only the crowd votes it still needs
+        # to clear the min_votes_known floor
+        want = torch.where(known, torch.minimum(want, torch.clamp(
+            L.min_votes_known - win["n_votes"], min=0)), want)
     tier1 = win["active"] & (n_asg < want)
     if cfg.straggler:
         extra = torch.clamp(want, max=cfg.max_dup)
@@ -440,9 +654,29 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
             & (n_asg < want + extra)
     else:
         tier2 = torch.zeros_like(tier1)
-    shift = (_uniform_block(seed ^ 0xA5A5A5A5, step, 1)[:, 0]
-             * Ws).to(torch.int64)
-    take, task_for_w, _, _ = priority_match(avail, tier1, tier2, shift)
+    if R.enabled:
+        # FROG-style routing: workers x window slots scored from the online
+        # accuracy estimate (after this tick's crediting and churn) and the
+        # latency EWMA, task uncertainty from the FUSED posterior
+        shift = (_uniform_block(seed ^ 0xA5A5A5A5, step, 1)[:, 0]
+                 * Ws).to(torch.int64)
+        scores = route_scores(_acc_hat(cfg, ws), ws["lat_ewma"],
+                              uncertainty(fused), R)
+        take, task_for_w, _, _ = scored_match(scores, avail, tier1, tier2,
+                                              shift)
+    elif L.enabled and L.prioritize:
+        # votes go to the window tasks with the LOWEST fused confidence
+        # first: match in that permuted slot order and map back
+        unc = torch.where(win["active"], -confidence(fused), -INF)
+        perm = torch.argsort(-unc, dim=-1, stable=True)
+        take, task_p, _, _ = priority_match(
+            avail, torch.gather(tier1, 1, perm), torch.gather(tier2, 1, perm),
+            torch.zeros((B,), dtype=torch.int64, device=dev))
+        task_for_w = torch.gather(perm, 1, task_p)
+    else:
+        shift = (_uniform_block(seed ^ 0xA5A5A5A5, step, 1)[:, 0]
+                 * Ws).to(torch.int64)
+        take, task_for_w, _, _ = priority_match(avail, tier1, tier2, shift)
     lat_new = draw_latency(fast, ws["mu"], ws["sigma"], up[:, 6], up[:, 7])
     ws["assigned"] = torch.where(take, task_for_w, ws["assigned"])
     ws["busy_until"] = torch.where(take, t + lat_new, ws["busy_until"])
@@ -458,13 +692,163 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
         completions=(comp & (torch.gather(win["arrival_t"], 1, a_idx)
                              >= warmup_t)).sum(-1),
         done_all=fin.sum(-1), dropped=dropped, backlog=bl_count,
-        in_flight=win["active"].sum(-1))
-    return ws, win, bl, metrics
+        in_flight=win["active"].sum(-1),
+        model_known=((wfin & known).sum(-1) if L.enabled
+                     else torch.zeros_like(done_d)))
+    train = None
+    if L.enabled:
+        # finalized (features, label) pairs for the learner's ring. The
+        # label is the CROWD-ONLY posterior's, so a confident-but-wrong model
+        # cannot train on its own prediction; with train_crowd_only a pair
+        # also needs one crowd vote
+        crowd = win["logpost"].argmax(-1)
+        train = dict(mask=fin & (win["n_votes"] >= 1) if L.train_crowd_only
+                     else fin, feat=win["feat"], label=crowd)
+        if R.admission == "uncertain_learnable":
+            # learnability target: did the model's prediction agree with
+            # the crowd's final label?
+            train["learnable"] = (model_lg.argmax(-1) == crowd).to(
+                torch.int64)
+    return ws, win, bl, metrics, train
+
+
+# --------------------------------------------------------------------------
+# cross-shard work stealing (one device)
+# --------------------------------------------------------------------------
+
+def _steal_plan(counts, steal_max: int, slack: int):
+    """Deterministic rebalance plan from the backlog depths ``counts`` (...,
+    S) of one replication's shards: shards more than ``slack`` above the
+    mean donate up to ``steal_max`` tasks, shards below it claim up to
+    ``steal_max``, and the matched volume is filled greedily in shard order
+    on both sides. Returns ``(give, take)``, each (..., S)."""
+    S = counts.shape[-1]
+    target = counts.sum(-1, keepdim=True) // S
+    give0 = torch.clamp(counts - target - slack, 0, steal_max)
+    take0 = torch.clamp(target - counts, 0, steal_max)
+    vol = torch.minimum(give0.sum(-1, keepdim=True),
+                        take0.sum(-1, keepdim=True))
+    fill = lambda want: torch.minimum(
+        torch.clamp(vol - (torch.cumsum(want, -1) - want), min=0), want)
+    return fill(give0), fill(take0)
+
+
+def _steal_rebalance(cfg: StreamConfig, bl):
+    """Move backlog work from hot shards to starved ones of the same
+    replication (FIFO ring). Donors pop their OLDEST entries (arrival times
+    are task identity under FIFO admission), the donations are pooled per
+    replication in donation-rank order, and receivers append their claimed
+    ranks at the tail: the replication's backlog multiset is unchanged.
+    Returns ``(bl, received, donated)``, the counts (B,)."""
+    sh = cfg.sharding
+    S, Q, K = cfg.n_shards, cfg.backlog, sh.steal_max
+    B = bl["count"].shape[0]
+    N, dev = B // S, bl["count"].device
+    counts = bl["count"].reshape(N, S)
+    head = bl["head"].reshape(N, S)
+    times = bl["times"].reshape(N, S, Q + 1)
+    give, take = _steal_plan(counts, K, sh.steal_slack)
+    gcum = torch.cumsum(give, -1) - give                    # donation ranks
+    tcum = torch.cumsum(take, -1) - take                    # claim ranks
+    k = torch.arange(K, device=dev)
+    # donors pop their oldest entries off the ring head
+    don = torch.gather(times, 2, (head[..., None] + k) % Q)  # (N, S, K)
+    head = (head + give) % Q
+    count = counts - give
+    validd = k < give[..., None]
+    ranks = torch.where(validd, gcum[..., None] + k, S * K)
+    pool = torch.zeros((N, S * K + 1), device=dev).scatter(
+        1, ranks.reshape(N, -1),
+        torch.where(validd, don, 0.0).reshape(N, -1))[:, :S * K]
+    # receivers claim consecutive ranks and append at their tail
+    validc = k < take[..., None]
+    incoming = torch.gather(
+        pool, 1, torch.where(validc, tcum[..., None] + k, 0).reshape(N, -1)
+    ).reshape(N, S, K)
+    posr = (head[..., None] + count[..., None] + k) % Q
+    times = times.scatter(2, torch.where(validc, posr, Q),
+                          torch.where(validc, incoming, 0.0))
+    new = dict(times=times.reshape(B, Q + 1), head=head.reshape(B),
+               count=(count + take).reshape(B))
+    return new, take.reshape(B), give.reshape(B)
 
 
 # --------------------------------------------------------------------------
 # driver
 # --------------------------------------------------------------------------
+
+def _learner_tick_params(cfg: StreamConfig, ls):
+    """The tick's learner parameters, each replication's expanded to its
+    shards (B): the learner's ``lW``/``lb``, the fusion weight ``fuse_w``
+    (ramping with the ring's fill so an untrained model contributes
+    nothing), and under ``uncertain_learnable`` the learnability head's
+    ``gW``/``gb``. None without a learner."""
+    if ls is None:
+        return None
+    L, S = cfg.learner, cfg.n_shards
+    rep = lambda x: x.repeat_interleave(S, 0)
+    fuse_w = L.prior_scale * torch.clamp(
+        ls["buf_n"].to(torch.float32) / L.ramp_n, max=1.0)
+    lp = dict(lW=rep(ls["learn"].W), lb=rep(ls["learn"].b),
+              fuse_w=rep(fuse_w))
+    if "learn2" in ls:
+        lp.update(gW=rep(ls["learn2"].W), gb=rep(ls["learn2"].b))
+    return lp
+
+
+def _learner_push_fit(cfg: StreamConfig, ls, train, step: int):
+    """Push this tick's finalized examples of every shard, in shard order,
+    into their replication's replay ring, and on the ``fit_every`` cadence
+    take ``fit_steps`` Adam steps on the ring (a no-op for a replication
+    whose ring is empty) and refit the learnability head from scratch (60
+    steps). Returns the new learner state."""
+    L, S, Ws, F = cfg.learner, cfg.n_shards, cfg.window, \
+        cfg.learner.n_features
+    Bf = L.buffer
+    N = ls["buf_n"].shape[0]
+    tm = train["mask"].reshape(N, S * Ws)
+    rank = torch.cumsum(tm.to(torch.int64), -1) - 1
+    pos = torch.where(tm, (ls["buf_n"][:, None] + rank) % Bf, Bf)
+
+    def push(ring, vals):
+        # unmasked rows rewrite the dump row with its own value
+        if ring.dim() == 3:
+            idx = pos[..., None].expand(-1, -1, F)
+            keep = tm[..., None]
+        else:
+            idx, keep = pos, tm
+        return ring.scatter(1, idx, torch.where(
+            keep, vals, torch.gather(ring, 1, idx)))
+
+    new = dict(ls)
+    new["buf_X"] = push(ls["buf_X"], train["feat"].reshape(N, S * Ws, F))
+    new["buf_y"] = push(ls["buf_y"], train["label"].reshape(N, S * Ws))
+    new["buf_n"] = ls["buf_n"] + tm.sum(-1)
+    fit_now = step % L.fit_every == 0
+    if fit_now:
+        sw = (torch.arange(Bf, device=tm.device)[None, :]
+              < new["buf_n"][:, None]).to(torch.float32)
+        X, y = new["buf_X"][:, :Bf], new["buf_y"][:, :Bf]
+        new["learn"] = linear.fit(ls["learn"], X, y, sw, steps=L.fit_steps,
+                                  lr=L.lr, l2=L.l2, fresh_opt=False,
+                                  ordered=True)
+    if "learn2" in ls:
+        new["buf_t"] = push(ls["buf_t"],
+                            train["learnable"].reshape(N, S * Ws))
+        if fit_now:
+            # the tiny head gates every admission, so it is refit from
+            # scratch each cadence on the current ring (a replication with
+            # an empty ring keeps its head)
+            fresh = linear.fit(
+                linear.init(2 * F, 2, (N,), tm.device),
+                learnability_features(X), new["buf_t"][:, :Bf], sw,
+                steps=60, lr=L.lr, l2=L.l2, ordered=True)
+            has = new["buf_n"] > 0
+            new["learn2"] = linear.LinearLearner(*(
+                torch.where(has.reshape((N,) + (1,) * (a.dim() - 1)), a, b)
+                for a, b in zip(fresh, ls["learn2"])))
+    return new
+
 
 def _tick_arrivals(cfg: StreamConfig, arr_state, gen, t: float,
                    rate_scale: float):
@@ -517,8 +901,9 @@ def draw_init(cfg: StreamConfig, n_reps: int, seed: int = 0):
     return ws, banks, seeds
 
 
+
 _ACCUM = ("hist", "done", "correct", "sum_tis", "votes_fin", "completions",
-          "done_all", "dropped")
+          "done_all", "dropped", "model_known")
 
 
 def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
@@ -536,10 +921,13 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
     B = seeds.shape[0]
     N = B // S
     ws, banks, win, bl = state["ws"], state["banks"], state["win"], state["bl"]
+    ls = state["learner"]
+    steal = cfg.sharding.steal != "none"
     zi = lambda *s: torch.zeros(s, dtype=torch.int64, device=dev)
     acc = {k: zi(B) for k in _ACCUM if k != "hist"}
     acc["hist"] = zi(B, cfg.tis_bins)
     acc["sum_tis"] = torch.zeros((B,), device=dev)
+    stolen, donated = zi(B), zi(B)
     over, arrived, arrived_warm = zi(N), zi(N), zi(N)
     series = {k: zi(N, horizon)
               for k in ("arrivals", "finalized", "backlog", "in_flight")}
@@ -565,8 +953,15 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
         over = over + torch.clamp(n_arr - M, min=0).sum(-1) \
             + (n_new - torch.clamp(n_new, max=cap_total))
         n_arr = torch.clamp(n_arr, max=M).reshape(B)
-        ws, win, bl, m = _shard_tick(cfg, ws, banks, win, bl, n_arr, tf,
-                                     step, seeds, warmup_t)
+        ws, win, bl, m, train = _shard_tick(
+            cfg, ws, banks, win, bl, n_arr, tf, step, seeds, warmup_t,
+            _learner_tick_params(cfg, ls))
+        if steal:
+            bl, got, gave = _steal_rebalance(cfg, bl)
+            stolen = stolen + got
+            donated = donated + gave
+        if ls is not None:
+            ls = _learner_push_fit(cfg, ls, train, step)
         for k in _ACCUM:
             acc[k] = acc[k] + m[k]
         arrived = arrived + n_new
@@ -584,16 +979,20 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
     local["n_evicted"] = ws["n_evicted"]
     local["backlog_end"] = bl["count"]
     local["in_flight_end"] = win["active"].sum(-1)
-    local["stolen"] = local["donated"] = zi(B)
-    local["model_known"] = zi(B)
+    local["stolen"], local["donated"] = stolen, donated
     out = {k: v.reshape((N, S) + v.shape[1:]).sum(1) for k, v in local.items()}
     out["dropped"] = out["dropped"] + over
     out["arrived"] = arrived
     out["arrived_warm"] = arrived_warm
+    if ls is not None and "learn2" in ls:
+        # the learnability head's final parameters (diagnostics)
+        out["learn2_W"] = ls["learn2"].W
+        out["learn2_b"] = ls["learn2"].b
     out["per_shard"] = {k: local[k].reshape(N, S) for k in
                         ("backlog_end", "in_flight_end", "stolen", "donated")}
     out["series"] = series
-    return out, dict(ws=ws, banks=banks, win=win, bl=bl, seeds=seeds)
+    return out, dict(ws=ws, banks=banks, win=win, bl=bl, seeds=seeds,
+                     learner=ls)
 
 
 def _validate_stream_config(cfg: StreamConfig):
@@ -631,16 +1030,25 @@ def _validate_stream_config(cfg: StreamConfig):
     if sh.steal not in ("none", "pressure"):
         raise ValueError("sharding.steal must be 'none' or 'pressure', "
                          f"got {sh.steal!r}")
+    if sh.steal != "none":
+        if cfg.routing.admission != "fifo":
+            raise ValueError(
+                f"sharding.steal={sh.steal!r} rebalances the FIFO backlog "
+                "ring and requires routing.admission='fifo', got "
+                f"{cfg.routing.admission!r}")
+        if not 1 <= sh.steal_max <= cfg.backlog:
+            raise ValueError("sharding.steal_max must be in [1, backlog="
+                             f"{cfg.backlog}], got {sh.steal_max}")
+        if sh.steal_slack < 0:
+            raise ValueError("sharding.steal_slack must be >= 0, got "
+                             f"{sh.steal_slack}")
     if sh.n_devices < 1 or cfg.n_shards % sh.n_devices:
         raise ValueError(f"sharding.n_devices={sh.n_devices} must be >= 1 "
                          f"and divide n_shards={cfg.n_shards}")
     unported = [
-        (L.enabled, "learner.enabled"),
-        (cfg.routing.enabled, "routing.enabled"),
-        (cfg.routing.admission != "fifo",
-         f"routing.admission={cfg.routing.admission!r}"),
+        (L.enabled and L.feature_kind == "lm",
+         "learner.feature_kind='lm' (LM task features)"),
         (cfg.trace is not None, "trace"),
-        (sh.steal != "none", f"sharding.steal={sh.steal!r}"),
         (sh.n_devices > 1, f"sharding.n_devices={sh.n_devices}"),
     ]
     for on, what in unported:
@@ -661,9 +1069,11 @@ def run_stream(cfg: StreamConfig, horizon: int, *, n_reps: int = 1,
     ``seed`` draws the worker banks and counter seeds (host numpy) and the
     per-tick arrivals (a ``torch.Generator`` on ``device``). For parity
     tests, ``init`` replaces the first with a :func:`state_from_numpy`
-    state and ``arrivals = (n_new (horizon, n_reps), n_arr (horizon,
-    n_reps, n_shards))`` the second; ``n_arr`` are per-shard counts before
-    the ``max_arrivals_per_tick`` cap.
+    state (which may carry a trained learner) and ``arrivals = (n_new
+    (horizon, n_reps), n_arr (horizon, n_reps, n_shards))`` the second;
+    ``n_arr`` are per-shard counts before the ``max_arrivals_per_tick``
+    cap. With the learner under ``uncertain_learnable`` the result also
+    holds the learnability head's final ``learn2_W`` / ``learn2_b``.
     """
     _validate_stream_config(cfg)
     dev = resolve_device(device)

@@ -22,7 +22,9 @@ forces the plain version.
 
 Matrix products run in full float32, as the reference's: ``logits`` and
 the gradient's product run inside :func:`repro_torch.device.full_fp32`
-(no TF32).
+(no TF32). With ``ordered=True`` they go through :func:`ordered_matmul`
+instead, which rounds the same on the CPU and the card: the stream's
+learner, whose every product decides integers, takes that path.
 """
 from __future__ import annotations
 
@@ -96,9 +98,26 @@ def reset_opt(state: LinearLearner) -> LinearLearner:
     return with_params(state.W, state.b)
 
 
-def logits(state: LinearLearner, X) -> torch.Tensor:
+def ordered_matmul(A, B) -> torch.Tensor:
+    """``A (..., n, k) @ B (..., k, m)``, each output the sum of its k
+    products added in index order by one sequential ``segment_reduce``: the
+    same rounding on the CPU and the card, for any batch size (cuBLAS picks
+    its order by shape). For small contractions; it holds all n·k·m
+    products at once."""
+    p = A[..., :, :, None] * B[..., None, :, :]
+    lead, k, m = p.shape[:-2], p.shape[-2], p.shape[-1]
+    return _segment_sum(p.reshape((-1, k, m)), k).reshape(lead + (m,))
+
+
+def _matmul(A, B, ordered: bool):
+    if ordered:
+        return ordered_matmul(A, B)
     with full_fp32():
-        return torch.matmul(X, state.W) + state.b[..., None, :]
+        return torch.matmul(A, B)
+
+
+def logits(state: LinearLearner, X, ordered: bool = False) -> torch.Tensor:
+    return _matmul(X, state.W, ordered) + state.b[..., None, :]
 
 
 def predict_proba(state: LinearLearner, X) -> torch.Tensor:
@@ -145,8 +164,8 @@ def _segment_sum(g, size: int):
                                 unsafe=True)
 
 
-def _step(state: LinearLearner, X, onehot, ws, lr: float, l2: float
-          ) -> LinearLearner:
+def _step(state: LinearLearner, X, onehot, ws, lr: float, l2: float,
+          ordered: bool = False) -> LinearLearner:
     """One Adam step with the per-row loss weights ``ws = sw / max(sum sw,
     1e-9)`` and one-hot targets precomputed.
 
@@ -156,11 +175,10 @@ def _step(state: LinearLearner, X, onehot, ws, lr: float, l2: float
     a sum is zero in exact arithmetic — a class-balanced label set at
     uniform predictions — and rounds to a residue of ~1e-9 that the
     normalized Adam step turns into a step of up to ``lr``."""
-    z = logits(state, X)
+    z = logits(state, X, ordered)
     e = torch.exp(z - z.amax(-1, keepdim=True))
     g = e * (ws / e.sum(-1))[..., None] - onehot * ws[..., None]
-    with full_fp32():
-        gW = torch.matmul(X.transpose(-1, -2), g) + 2.0 * (l2 * state.W)
+    gW = _matmul(X.transpose(-1, -2), g, ordered) + 2.0 * (l2 * state.W)
     gb = _row_sum(g)
     t = state.t + 1
     m_W = 0.9 * state.m_W + 0.1 * gW
@@ -196,20 +214,21 @@ def fit_step(state: LinearLearner, X, y, sw, *, lr: float = 0.15,
 
 def fit(state: LinearLearner, X, y, sw, *, steps: int = 120,
         lr: float = 0.15, l2: float = 1e-3,
-        fresh_opt: bool = True) -> LinearLearner:
+        fresh_opt: bool = True, ordered: bool = False) -> LinearLearner:
     """``steps`` Adam steps; a no-op for every replication whose rows all
     have zero weight.
 
     ``sw`` is the per-row weight — zero rows are unlabeled. ``fresh_opt``
     resets the Adam moments first (refit from scratch); pass False for
-    online updates that keep momentum across calls.
+    online updates that keep momentum across calls. ``ordered`` computes
+    the products with :func:`ordered_matmul`.
     """
     if fresh_opt:
         state = reset_opt(state)
     onehot, ws = _targets(y, sw, state.n_classes)
     new = state
     for _ in range(steps):
-        new = _step(new, X, onehot, ws, lr, l2)
+        new = _step(new, X, onehot, ws, lr, l2, ordered)
     has = sw.sum(-1) > 0
     k = has.dim()
     return LinearLearner(*(

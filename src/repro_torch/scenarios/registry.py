@@ -16,7 +16,10 @@ from repro_torch.core.simfast import FastConfig
 from repro_torch.embed.config import EmbedConfig
 from repro_torch.labelstream.arrivals import ArrivalConfig
 from repro_torch.labelstream.policy import PolicyConfig
-from repro_torch.labelstream.router import StreamConfig
+from repro_torch.labelstream.router import (
+    ShardingConfig, StreamConfig, StreamLearnerConfig,
+)
+from repro_torch.labelstream.routing import RoutingConfig
 
 # shared stream dimensions: 2 shards x 8 workers, 32-slot windows, poisson
 # 0.01 tasks/s, 5 s ticks, 16 s histogram bins
@@ -24,6 +27,18 @@ _DIMS = dict(arrivals=ArrivalConfig(kind="poisson", rate=0.01),
              tis_bin_s=16.0)
 # task difficulty skew: a quarter of tasks pulled toward chance
 _SKEW = dict(p_hard=0.25, hard_scale=0.3)
+# the heterogeneous pool: wide Beta(2, 1) accuracy spread, a weak estimation
+# prior, hour-long sessions, drip adaptive redundancy, 8 s histogram bins
+_HET = dict(acc_a=2.0, acc_b=1.0, est_prior_n=2.0, session_mean_s=3600.0,
+            tis_bin_s=8.0,
+            policy=PolicyConfig(adaptive=True, votes_cap=5,
+                                conf_threshold=0.95, min_votes=1,
+                                max_outstanding=1))
+# bursty admission: 8-slot windows under an MMPP burst process
+_BURSTY = dict(_HET, window=8,
+               arrivals=ArrivalConfig(kind="mmpp", rate=0.01, rate_hi=0.12,
+                                      dwell_mean_s=900.0))
+_ROUTED = RoutingConfig(enabled=True)
 
 _CONFIGS = {
     "stream_default": StreamConfig(
@@ -42,6 +57,43 @@ _CONFIGS = {
         **_DIMS, **_SKEW, pm_l=240.0,
         policy=PolicyConfig(adaptive=True, votes_cap=5, conf_threshold=0.98,
                             min_votes=2, max_outstanding=2)),
+    # skewed_adaptive5 with the learner fused into the posterior
+    "skewed_learner_fused": StreamConfig(
+        **_DIMS, **_SKEW, pm_l=240.0,
+        policy=PolicyConfig(adaptive=True, votes_cap=5, conf_threshold=0.98,
+                            min_votes=2, max_outstanding=2),
+        learner=StreamLearnerConfig(enabled=True)),
+    "heterogeneous_pool": StreamConfig(
+        **_HET, window=16,
+        arrivals=ArrivalConfig(kind="poisson", rate=0.012)),
+    "heterogeneous_routed": StreamConfig(
+        **_HET, window=16,
+        arrivals=ArrivalConfig(kind="poisson", rate=0.012),
+        routing=_ROUTED),
+    "bursty_admission": StreamConfig(
+        **_BURSTY,
+        learner=StreamLearnerConfig(enabled=True, class_sep=1.2,
+                                    min_votes_known=0),
+        routing=_ROUTED),
+    "bursty_admission_uncertain": StreamConfig(
+        **_BURSTY,
+        learner=StreamLearnerConfig(enabled=True, class_sep=1.2,
+                                    min_votes_known=0),
+        routing=RoutingConfig(enabled=True, admission="uncertain")),
+    # a third of tasks at chance for every worker, and visibly so in
+    # feature space (their class separation shrunk to a tenth)
+    "chance_hard": StreamConfig(
+        **_BURSTY, p_hard=0.35, hard_scale=0.0,
+        learner=StreamLearnerConfig(enabled=True, class_sep=3.0,
+                                    hard_sep_scale=0.1),
+        routing=_ROUTED),
+    # 8 shards x 16 workers, pressure stealing between shards
+    "stream_sharded": StreamConfig(
+        n_shards=8, pool_size=16, window=16, pm_l=240.0, tis_bin_s=16.0,
+        arrivals=ArrivalConfig(kind="poisson", rate=0.04),
+        policy=PolicyConfig(adaptive=True, votes_cap=3, conf_threshold=0.95,
+                            min_votes=1, max_outstanding=1),
+        sharding=ShardingConfig(steal="pressure", steal_slack=1)),
 }
 
 

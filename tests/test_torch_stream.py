@@ -35,8 +35,13 @@ from repro_torch.scenarios import (  # noqa: E402
     get_stream_config, list_stream_configs,
 )
 
-NAMES = ["stream_default", "stream_batch_replay", "skewed_fixed5",
-         "skewed_adaptive5"]
+# the FIFO tick's workloads; the learner-aware ones are held in
+# tests/test_torch_stream_learner.py
+FIFO = ["stream_default", "stream_batch_replay", "skewed_fixed5",
+        "skewed_adaptive5"]
+NAMES = FIFO + ["skewed_learner_fused", "heterogeneous_pool",
+                "heterogeneous_routed", "bursty_admission",
+                "bursty_admission_uncertain", "chance_hard", "stream_sharded"]
 REFRESH = {"refresh_every": 40, "refresh_iters": 6}
 H, N = 200, 2
 
@@ -133,7 +138,7 @@ def test_registry_configs_match_reference():
         get_stream_config("lm_stream")
 
 
-@pytest.mark.parametrize("name,overrides", [(n, None) for n in NAMES]
+@pytest.mark.parametrize("name,overrides", [(n, None) for n in FIFO]
                          + [("skewed_adaptive5", REFRESH)])
 def test_stream_matches_reference_with_injected_draws(name, overrides):
     seed = 3
@@ -155,17 +160,21 @@ def test_stream_matches_reference_with_injected_draws(name, overrides):
 
 
 @pytest.mark.parametrize("change,err", [
-    (dict(learner=StreamLearnerConfig(enabled=True)), NotImplementedError),
-    (dict(routing=RoutingConfig(enabled=True)), NotImplementedError),
-    (dict(routing=RoutingConfig(admission="uncertain"),
-          learner=StreamLearnerConfig(enabled=True)), NotImplementedError),
+    (dict(learner=StreamLearnerConfig(enabled=True, feature_kind="lm")),
+     NotImplementedError),
     (dict(trace=object()), NotImplementedError),
-    (dict(sharding=ShardingConfig(steal="pressure")), NotImplementedError),
     (dict(sharding=ShardingConfig(n_devices=2)), NotImplementedError),
     (dict(serve=True), NotImplementedError),
     (dict(routing=RoutingConfig(admission="uncertain")), ValueError),
     (dict(routing=RoutingConfig(admission="lifo")), ValueError),
     (dict(sharding=ShardingConfig(steal="greedy")), ValueError),
+    (dict(sharding=ShardingConfig(steal="pressure"),
+          routing=RoutingConfig(admission="uncertain"),
+          learner=StreamLearnerConfig(enabled=True)), ValueError),
+    (dict(sharding=ShardingConfig(steal="pressure", steal_max=0)),
+     ValueError),
+    (dict(sharding=ShardingConfig(steal="pressure", steal_slack=-1)),
+     ValueError),
     (dict(sharding=ShardingConfig(n_devices=3)), ValueError),
     (dict(learner=StreamLearnerConfig(feature_kind="lm")), ValueError),
     (dict(learner=StreamLearnerConfig(feature_kind="text")), ValueError),

@@ -1,9 +1,10 @@
 """The port's stream on its own draws, on the CPU: two runs with the same
-seed are equal in every output (float sums and the EM refresh's
-scatter-adds included), arrivals are conserved, the draw helpers
+seed are equal in every output (float sums, the EM refresh's scatter-adds
+and the learner's fits included), arrivals are conserved, the draw helpers
 reproduce a seeded run, and the refresh is not a no-op. The tick-for-tick
-parity with the JAX package is in ``tests/test_torch_stream.py``; the card
-version of the determinism check is phase 4 of ``chip_smoke.py``.
+parity with the JAX package is in ``tests/test_torch_stream.py`` and
+``tests/test_torch_stream_learner.py``; the card version of the
+determinism check is phases 4 and 14 of ``chip_smoke.py``.
 """
 import dataclasses
 
@@ -41,10 +42,12 @@ def test_refresh_changes_the_run():
 
 
 @pytest.mark.parametrize("name,overrides", [("skewed_adaptive5", REFRESH),
-                                            ("stream_batch_replay", None)])
+                                            ("stream_batch_replay", None),
+                                            ("skewed_learner_fused", REFRESH),
+                                            ("chance_hard", None)])
 def test_stream_is_deterministic(name, overrides):
-    """Two runs with the same seed agree in every output, float sums and
-    the refresh's scatter-adds included."""
+    """Two runs with the same seed agree in every output, float sums, the
+    refresh's scatter-adds and the learner's fits included."""
     cfg = get_stream_config(name, overrides)
     a = tr.run_stream(cfg, 300, n_reps=3, seed=5, device="cpu")
     b = tr.run_stream(cfg, 300, n_reps=3, seed=5, device="cpu")
