@@ -18,9 +18,12 @@ drives the port's main path on the card:
      synthetic tasks, twice, bit for bit, every E-step on the task route,
      and against the CPU on a slice;
   4. the streaming labeling service (``skewed_adaptive5`` with the EM
-     refresh every 40 ticks) for 1440 ticks x 256 replications, twice, its
-     E-steps on the task route, and its first 8 replications against a CPU
-     run of the port with the same initial state and arrivals;
+     refresh every 40 ticks) for 1440 ticks x 256 replications through the
+     front door (``scenarios.run`` on the registry spec, its config equal
+     to ``get_stream_config``'s), then through ``run_stream`` on the same
+     seed, bit for bit, its E-steps on the task route, and its first 8
+     replications against a CPU run of the port with the same initial
+     state and arrivals;
   5. timings: the launch floor (a one-element ``zero_()``); the ``ds_estep``
      routes in turns per call (CUDA events) and on the device
      (``torch.profiler``) beside the bound and the plain version, at the
@@ -33,7 +36,8 @@ drives the port's main path on the card:
      shapes, in float32 and bfloat16, with H in [0, log V], and the narrow
      route bit-equal to the old narrow kernel (``narrow_v1``) there and
      over a grid of widths, ragged N and unaligned bases;
-  7. the hybrid-learning loop (``run_learning("hybrid_small")``) at 64
+  7. the hybrid-learning loop (``run_learning`` on the registry's
+     ``hybrid_small`` spec) at 64
      replications x 10 rounds x 60 fit steps, on the workload's own
      dataset and on an MNIST-sized one, twice each, bit for bit, with one
      entropy launch per round and the curve invariants; its first 8
@@ -93,13 +97,29 @@ drives the port's main path on the card:
      ``chance_hard`` (scored routing) with ``uncertain_learnable``
      admission (the learnability head), (c) ``stream_sharded`` (8 shards,
      pressure stealing) for 480 ticks and (d) the same at 20x its rate for
-     480 ticks, where shards do steal; each twice, bit for bit in every integer
+     480 ticks, where shards do steal ((b) also at 480 ticks); each twice,
+     bit for bit in every integer
      output, conservation exact, (a)'s 216 E-steps on the task route,
      ``model_known > 0`` with the learner, as much stolen as donated, and
      the first 8 replications equal to a CPU run of the port on the same
      initial state and arrivals (else the first differing tick and state
      are named); ticks per second, and a profiled 80-tick window of (a)
-     and (b).
+     and (b);
+ 15. the scenario front door and the live serve path: (a) the registry
+     smoke (``repro_torch.scenarios.smoke``) on the card, every (scenario,
+     ported engine) pair, the pairs not ported yet listed as ``[TODO]``;
+     (b) ``serve_tick`` driven directly for 2000 ticks on
+     ``serve_default``, ``stream_sharded`` and ``chance_hard`` with
+     ``uncertain_learnable`` admission, injections steering each shard's
+     backlog near its capacity: each twice, bit for bit, conservation
+     exact every tick, as much stolen as donated, the first 200 ticks equal
+     to the port on the CPU (else the first differing tick and key are
+     named); serve ticks per second and a profiled 80-tick window (kernels
+     and host copies per tick, device idle share); (c) the HTTP server
+     (``LabelServer``) on a loopback port: the launcher's smoke (4 clients
+     x 8 tasks), then 16 clients x 64 waiting tasks on ``serve_default``,
+     every one answered with conservation exact; answered tasks per
+     second, p50 / p95 wall latency and the tick's cold / warm time.
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -212,16 +232,18 @@ def device_profile(fn):
             sum(by_name.values()), by_name)
 
 
-def kernel_events(fn):
+def kernel_events(fn, cpu: bool = True):
     """Run ``fn()`` under ``torch.profiler`` and return ``(wall_s, {kernel
     name: [device time of each recorded launch in us]})``, the host wall
     time with the profiler on. A window of long kernels can come back with
     fewer events than launches (seen on an H100), so a kernel's time is the
-    mean over the events recorded, not the sum over the launches made."""
+    mean over the events recorded, not the sum over the launches made.
+    ``cpu=False`` records device activity only (a far smaller trace for
+    windows of many small launches)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -404,11 +426,12 @@ def stream_learner_phase(card: str):
     runs = [
         ("a", "skewed_learner_fused with the refresh",
          get_stream_config("skewed_learner_fused", refresh), H),
-        ("b", "chance_hard with uncertain_learnable admission",
+        # (b), (c) and (d) run a third of the horizon, to keep the smoke
+        # run near half its time limit with phase 15 after them
+        ("b", "chance_hard with uncertain_learnable admission, horizon cut "
+         f"to {H // 3} ticks",
          get_stream_config("chance_hard", {"routing": RoutingConfig(
-             enabled=True, admission="uncertain_learnable")}), H),
-        # (c) and (d) run a third of the horizon, to keep the smoke run
-        # within half its time limit
+             enabled=True, admission="uncertain_learnable")}), H // 3),
         ("c", "stream_sharded (8 shards, pressure stealing), horizon cut "
          f"to {H // 3} ticks",
          get_stream_config("stream_sharded"), H // 3),
@@ -543,6 +566,209 @@ def stream_learner_phase(card: str):
                 "measured (no device events)")
 
 
+def serve_schedule(cfg, rng, backlog):
+    """One tick's injections for phase 15(b): up to the per-tick maximum,
+    each shard topped up toward a backlog target near its capacity (the
+    whole backlog on even shards, seven eighths on odd ones, so that hot
+    shards have work to donate)."""
+    Q, M = cfg.backlog, cfg.max_arrivals_per_tick
+    target = np.where(np.arange(cfg.n_shards) % 2 == 0, Q, Q - Q // 8)
+    want = rng.integers(M // 2, M + 1, cfg.n_shards)
+    return np.clip(np.minimum(want, target - backlog), 0, M)
+
+
+def drive_serve(router, cfg, state, ticks: int, seed: int, sched=None):
+    """``ticks`` serve ticks from ``state``: injections from
+    :func:`serve_schedule` (seeded, steered by the backlog each tick
+    reports) or replayed from ``sched``. Returns the host outputs of every
+    tick, the schedule and the end state."""
+    rng = np.random.default_rng(seed)
+    S = cfg.n_shards
+    base, backlog = np.zeros(S, np.int64), np.zeros(S, np.int64)
+    outs, used = [], []
+    for i in range(ticks):
+        n = sched[i] if sched is not None else \
+            serve_schedule(cfg, rng, backlog)
+        state, out = router.serve_tick(cfg, state, n, base)
+        host = router.serve_out_numpy(out)
+        base += n
+        backlog = host["backlog"]
+        outs.append(host)
+        used.append(n)
+    return outs, np.stack(used), state
+
+
+SERVE_INTS = ("fin", "uid", "label", "votes", "dropped", "backlog",
+              "in_flight", "stolen", "donated")
+
+
+def serve_phase(card: str):
+    """Phase 15: the scenario front door and the live serve path on the
+    card (see the module docstring); fails at the first check that does
+    not hold. Returns the numbers PERF.md reports."""
+    import asyncio
+
+    from repro_torch.labelstream import router
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import timing
+    from repro_torch.scenarios import get_scenario, smoke, to_serve_config
+    from repro_torch.serving.server import LabelServer, ServeClient
+
+    # (a) the registry smoke, every (scenario, ported engine) pair
+    t0 = time.perf_counter()
+    rc = smoke.main(["--device", "cuda"])
+    check(rc == 0, "[serve a] the registry smoke failed on the card")
+    say(f"[serve a] registry smoke on the card passed in "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+
+    # (b) the serve tick, driven directly
+    T, T_CPU, SEED = 2000, 200, 0
+    runs = [("serve_default", None), ("stream_sharded", None),
+            ("chance_hard", {"policy.admission.kind": "uncertain_learnable"})]
+    found = {}
+    for name, ov in runs:
+        tag = f"[serve b {name}]"
+        cfg = to_serve_config(get_scenario(name, ov))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, sched, end = drive_serve(
+            router, cfg, router.serve_init(cfg, SEED, "cuda"), T, SEED)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs2, sched2, end2 = drive_serve(
+            router, cfg, router.serve_init(cfg, SEED, "cuda"), T, SEED)
+        torch.cuda.synchronize()
+        secs2 = time.perf_counter() - t0
+        check(np.array_equal(sched, sched2), f"{tag} the second run's "
+              "schedule differs (its backlogs differ)")
+        bad = [(i, k) for i, (a, b) in enumerate(zip(outs, outs2))
+               for k in SERVE_INTS + ("conf", "tis")
+               if not np.array_equal(a[k], b[k])]
+        check(not bad, f"{tag} not repeatable on the card: first tick and "
+              f"key {bad[:1]}")
+        a, b = flat_state(end["ws"]), flat_state(end2["ws"])
+        for part in ("win", "bl", "learner"):
+            a.update({f"{part}.{k}": v
+                      for k, v in flat_state(end[part]).items()})
+            b.update({f"{part}.{k}": v
+                      for k, v in flat_state(end2[part]).items()})
+        check(all(torch.equal(a[k], b[k]) for k in a),
+              f"{tag} end states differ between the two runs")
+        inj = fin = drop = stolen = 0
+        for n, o in zip(sched, outs):
+            inj += int(n.sum())
+            fin += int(o["fin"].sum())
+            drop += int(o["dropped"].sum())
+            stolen += int(o["stolen"].sum())
+            check(inj == fin + drop + int(o["backlog"].sum())
+                  + int(o["in_flight"].sum()), f"{tag} conservation fails")
+            check(int(o["stolen"].sum()) == int(o["donated"].sum()),
+                  f"{tag} stolen != donated")
+        check(fin > 0, f"{tag} nothing finalized")
+        # the first T_CPU ticks against the port on the CPU
+        t1 = time.perf_counter()
+        cpu, _, _ = drive_serve(router, cfg,
+                                router.serve_init(cfg, SEED, "cpu"), T_CPU,
+                                SEED, sched=sched)
+        cpu_s = time.perf_counter() - t1
+        first = next(((i, k) for i, (a, b) in enumerate(zip(outs, cpu))
+                      for k in SERVE_INTS if not np.array_equal(a[k], b[k])),
+                     None)
+        check(first is None, f"{tag} card and CPU differ first at tick "
+              f"{first and first[0]} in {first and first[1]}")
+        dconf = max(float(np.abs(a["conf"] - b["conf"]).max())
+                    for a, b in zip(outs, cpu))
+        say(f"{tag} {cfg.n_shards} shards x window {cfg.window}, {T} ticks "
+            f"in {secs:.2f} s ({T / secs:.1f} ticks/s, first run; "
+            f"{T / secs2:.1f} the second); injected {inj}, finalized {fin}, "
+            f"backlog {int(outs[-1]['backlog'].sum())}, in flight "
+            f"{int(outs[-1]['in_flight'].sum())}, dropped {drop}, stolen = "
+            f"donated = {stolen}; second run bit-equal; conservation exact "
+            f"every tick; first {T_CPU} ticks equal the CPU in every integer "
+            f"output (max |dconf| {dconf:.3g}; CPU {cpu_s:.1f} s); {card}")
+        found[name] = dict(cfg=cfg, end=end, us=1e6 * secs2 / T,
+                           ticks_per_s=T / secs, fin=fin, stolen=stolen)
+
+    # where a serve tick's time goes: 80 ticks under the profiler, kernels
+    # and host copies counted apart
+    Hp = 80
+    for name, r in found.items():
+        wall, events = kernel_events(
+            lambda: drive_serve(router, r["cfg"], r["end"], Hp, SEED + 1),
+            cpu=False)
+        if not events:
+            say(f"[profile] serve {name}: device time not measured (no "
+                "device events)")
+            continue
+        count = lambda pick: sum(len(v) for k, v in events.items()
+                                 if pick(k))
+        h2d = count(lambda k: "HtoD" in k)
+        d2h = count(lambda k: "DtoH" in k)
+        n_kern = count(lambda k: not k.startswith(("Memcpy", "Memset")))
+        by_name = {k: sum(v) for k, v in events.items()}
+        busy = sum(by_name.values())
+        idle = (1 - busy / Hp / r["us"]) * 100
+        r.update(kernels=n_kern / Hp, busy_us=busy / Hp, idle=idle,
+                 h2d=h2d / Hp, d2h=d2h / Hp)
+        say(f"[profile] serve {name}, {Hp} ticks: {n_kern / Hp:.0f} kernels "
+            f"and {h2d / Hp:.2f} host-to-device / {d2h / Hp:.2f} "
+            f"device-to-host copies per tick, device busy {busy / Hp:.0f} us "
+            f"per tick; wall per tick {wall / Hp * 1e6:.0f} us with the "
+            f"profiler on, {r['us']:.0f} us without: device idle "
+            f"{idle:.1f}% of the unprofiled tick; {card}")
+        for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+            say(f"[profile]   {us / Hp:8.1f} us/tick  {kname[:90]}")
+
+    # (c) the HTTP server on the card
+    timing.clear()
+    res = asyncio.run(asyncio.wait_for(
+        launch_serve.smoke("serve_default", device="cuda"), 120))
+    say("[serve c] smoke " + json.dumps(res))
+    check(res["ok"], "[serve c] the serve smoke failed on the card")
+
+    n_clients, per_client = 16, 64
+
+    async def load():
+        srv = await LabelServer(get_scenario("serve_default"), seed=SEED,
+                                port=0, tick_interval_s=0.0,
+                                device="cuda").start()
+
+        async def client():
+            c = await ServeClient(srv.host, srv.port).connect()
+            got = [await c.submit(wait=True, timeout_s=60.0)
+                   for _ in range(per_client)]
+            await c.aclose()
+            return got
+
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*[client() for _ in range(n_clients)])
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+        await srv.close()
+        return got, wall, stats, n_clients * per_client
+
+    timing.clear()
+    got, wall, stats, n = asyncio.run(asyncio.wait_for(load(), 300))
+    done = sum(1 for out in got for st, r in out
+               if st == 200 and r["status"] == "done")
+    check(done == n and stats["answered"] == n and stats["conservation"],
+          f"[serve c] {done}/{n} answered, stats {stats}")
+    (row,) = stats["timing"]
+    http = dict(tasks_per_s=n / wall, p50_s=stats["p50_latency_s"],
+                p95_s=stats["p95_latency_s"], ticks=stats["ticks"],
+                cold_s=row["cold_s"], warm_s=row["warm_s"], wall=wall)
+    say(f"[serve c] {n_clients} clients x {per_client} wait=true tasks on "
+        f"serve_default: {n} "
+        f"answered in {wall:.2f} s ({n / wall:.1f} answered tasks/s), p50 "
+        f"{stats['p50_latency_s'] * 1e3:.1f} ms, p95 "
+        f"{stats['p95_latency_s'] * 1e3:.1f} ms wall over loopback; "
+        f"{stats['ticks']} ticks; serve.tick cold {row['cold_s'] * 1e3:.1f} "
+        f"ms, warm {row['warm_s'] * 1e3:.2f} ms; conservation exact; "
+        f"{card}")
+    return found, http
+
+
 def launch_times(src: str):
     """``python3 chip_smoke.py --launch-times SRC``: the per-call times of
     ``ds_estep`` at the stream refresh's shape and of ``entropy_scores`` at
@@ -584,6 +810,7 @@ def main():
     from repro_torch.kernels.uncertainty import entropy_route, entropy_scores
     from repro_torch.labelstream import aggregate, router
     from repro_torch.learning import linear
+    from repro_torch import scenarios as scen
     from repro_torch.scenarios import (
         get_fast_config, get_learning_spec, get_stream_config, run_learning,
         spec_dataset,
@@ -788,16 +1015,26 @@ def main():
     check(d_post <= 1e-4 and d_acc <= 1e-4, "offline EM: card and CPU differ")
 
     # ---- phase 4: the stream ---------------------------------------------
+    # through the front door: the registry scenario with the learner's
+    # refresh knobs, lowered and run by scenarios.run
+    spec4 = scen.get_scenario("skewed_adaptive5", {
+        "policy.learner.refresh_every": 40,
+        "policy.learner.refresh_iters": 6})
     cfg = get_stream_config("skewed_adaptive5",
                             {"refresh_every": 40, "refresh_iters": 6})
+    check(scen.to_stream_config(spec4) == cfg, "the front door's stream "
+          "config differs from get_stream_config's")
     H, N, SEED = 1440, 256, 0
     n_refresh = H // cfg.refresh_every
     ds_estep.launches = ds_estep.task_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = router.run_stream(cfg, H, n_reps=N, seed=SEED, device="cuda")
+    res4 = scen.run(spec4, engine="stream", horizon=H, n_reps=N, seed=SEED,
+                    device="cuda")
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
+    out = res4["raw"]
+    check(res4["config"] == cfg, "scenarios.run lowered another config")
     stream_launches = ds_estep.launches
     stream_task = ds_estep.task_launches
     check(stream_launches == stream_task == n_refresh * cfg.refresh_iters,
@@ -817,13 +1054,18 @@ def main():
         f"+ backlog {total('backlog_end')} + in flight "
         f"{total('in_flight_end')} + dropped {total('dropped')}")
     check(lhs == rhs, "stream conservation fails")
+    # the same run through the entry point itself
     out2 = router.run_stream(cfg, H, n_reps=N, seed=SEED, device="cuda")
     diff = [k for k in ints if not torch.equal(out[k], out2[k])]
     diff += [f"series.{k}" for k in out["series"]
              if not torch.equal(out["series"][k], out2["series"][k])]
     check(not diff, f"stream is not repeatable on the card: {diff}")
-    say("[stream] second run with the same seed: every integer output equal")
     summ = router.stream_summary(cfg, out)
+    check(res4["metrics"] == router.stream_summary(cfg, out2),
+          "scenarios.run's metrics differ from run_stream's summary")
+    say("[stream] scenarios.run(skewed_adaptive5 + refresh) = run_stream on "
+        "the same seed: config equal, every integer output and the "
+        "summary equal")
     say("[stream] summary " + json.dumps(summ, sort_keys=True))
     for k in ("sustained_rate", "accuracy", "mean_tis", "cost"):
         check(math.isfinite(summ[k]) and summ[k] > 0, f"summary {k}={summ[k]}")
@@ -1070,8 +1312,8 @@ def main():
         simfast._learner_round = recording_round
         try:
             entropy_scores.launches = 0
-            r1 = run_learning("hybrid_small", *data, device="cuda",
-                              **learn_kw)
+            r1 = run_learning(scen.get_scenario("hybrid_small"), *data,
+                              device="cuda", **learn_kw)
             torch.cuda.synchronize()
             n_launch = entropy_scores.launches
         finally:
@@ -1083,7 +1325,8 @@ def main():
         entropy_scores.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r2 = run_learning("hybrid_small", *data, device="cuda", **learn_kw)
+        r2 = run_learning(scen.get_scenario("hybrid_small"), *data,
+                          device="cuda", **learn_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         check(entropy_scores.launches == ROUNDS,
@@ -2459,6 +2702,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     stream_learner_phase(card)
+
+    # ---- phase 15: the scenario front door and the live serve path ------
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_phase(card)
 
     # ds_estep: the public call at the stream's refresh shape (the task
     # route's warp mode), and the task kernel at the offline EM's C4 shape

@@ -5,7 +5,9 @@ ring-buffer task window over sharded retainer pools (``router``), votes are
 aggregated by a batched full-confusion Dawid-Skene EM (``aggregate``, on
 the Hopper ``ds_estep`` kernel), and posterior-confidence adaptive
 redundancy (``policy``) stops requesting votes once a task's posterior is
-confident. Exports resolve lazily, as in the reference package.
+confident. ``serve_init`` / ``serve_tick`` step the same tick with injected
+arrivals for the live front end (``repro_torch.serving``). Exports resolve
+lazily, as in the reference package.
 """
 import importlib
 
@@ -23,6 +25,8 @@ _EXPORTS = {
     "ShardingConfig": "router",
     "run_stream": "router",
     "stream_summary": "router",
+    "serve_init": "router",
+    "serve_tick": "router",
 }
 
 __all__ = sorted(_EXPORTS)

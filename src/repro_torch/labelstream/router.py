@@ -36,8 +36,13 @@ parity tests, :func:`state_from_numpy` takes the reference's initial state
 (and, optionally, a learner state) and :func:`run_stream` takes injected
 arrival counts.
 
+Serve mode (``serve=True``, :func:`serve_init` / :func:`serve_tick`) runs
+the same tick one step at a time with injected per-shard arrival counts,
+each arrival carrying a request uid through the backlog (and a steal) into
+its window slot, for the live front end :mod:`repro_torch.serving.server`.
+
 Not yet ported (the config validator refuses them): LM task features,
-device sharding, trace buffers and serve mode.
+device sharding and trace buffers.
 """
 from __future__ import annotations
 
@@ -197,6 +202,9 @@ def _init_window(cfg: StreamConfig, B: int, device):
     )
     if cfg.learner.enabled:
         win["feat"] = torch.zeros((B, Ws, cfg.learner.n_features), **z)
+    if cfg.serve:
+        # per-slot request uid (serve mode): -1 marks "no request here"
+        win["uid"] = torch.full((B, Ws), -1, dtype=torch.int64, **z)
     return win
 
 
@@ -206,16 +214,22 @@ def _init_backlog(cfg: StreamConfig, B: int, device):
         # slot-array backlog: task identity (difficulty, label, features) is
         # drawn at ARRIVAL so admission can rank by model uncertainty; row Q
         # is the dump row of masked writes
-        return dict(times=torch.zeros((B, Q + 1), **z),
-                    diff=torch.ones((B, Q + 1), **z),
-                    tlab=torch.zeros((B, Q + 1), dtype=torch.int64, **z),
-                    feat=torch.zeros((B, Q + 1, cfg.learner.n_features), **z),
-                    occ=torch.zeros((B, Q), dtype=torch.bool, **z),
-                    count=torch.zeros((B,), dtype=torch.int64, **z))
-    # FIFO ring of arrival times; slot Q is the dump slot of masked writes
-    return dict(times=torch.zeros((B, Q + 1), **z),
-                head=torch.zeros((B,), dtype=torch.int64, **z),
-                count=torch.zeros((B,), dtype=torch.int64, **z))
+        bl = dict(times=torch.zeros((B, Q + 1), **z),
+                  diff=torch.ones((B, Q + 1), **z),
+                  tlab=torch.zeros((B, Q + 1), dtype=torch.int64, **z),
+                  feat=torch.zeros((B, Q + 1, cfg.learner.n_features), **z),
+                  occ=torch.zeros((B, Q), dtype=torch.bool, **z),
+                  count=torch.zeros((B,), dtype=torch.int64, **z))
+    else:
+        # FIFO ring of arrival times; slot Q is the dump slot of masked
+        # writes
+        bl = dict(times=torch.zeros((B, Q + 1), **z),
+                  head=torch.zeros((B,), dtype=torch.int64, **z),
+                  count=torch.zeros((B,), dtype=torch.int64, **z))
+    if cfg.serve:
+        # the request uid of every backlog entry (serve mode)
+        bl["uid"] = torch.full((B, Q + 1), -1, dtype=torch.int64, **z)
+    return bl
 
 
 def _init_learner(cfg: StreamConfig, n_reps: int, device):
@@ -361,11 +375,14 @@ def _task_features(u1, u2, tl, diff, L: StreamLearnerConfig, C: int):
 
 
 def _admit_fifo(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
-                seed):
+                seed, uid_base=None):
     """FIFO ring push of this tick's arrivals and admission of the oldest
     into the free window slots; task identity (difficulty, label, features)
-    is drawn at admission. Returns ``(bl, dropped, admit, arr_t, diff, tl,
-    featw)``; ``featw`` is None without the learner."""
+    is drawn at admission. In serve mode the arrivals carry the uids
+    ``uid_base + i`` through the backlog's uid ring. Returns ``(bl,
+    dropped, admit, arr_t, diff, tl, featw, uid_w)``; ``featw`` is None
+    without the learner, ``uid_w`` (the admitted uids) outside serve
+    mode."""
     Ws, C, Q, M = cfg.window, cfg.n_classes, cfg.backlog, \
         cfg.max_arrivals_per_tick
     L, B, dev = cfg.learner, seed.shape[0], seed.device
@@ -381,8 +398,15 @@ def _admit_fifo(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
     admit = free & (frank < n_adm[:, None])
     src = torch.where(admit, (bl["head"][:, None] + frank) % Q, Q)
     arr_t = torch.gather(bl_times, 1, src)
-    bl = dict(times=bl_times, head=(bl["head"] + n_adm) % Q,
-              count=bl_count - n_adm)
+    bl_new = dict(times=bl_times, head=(bl["head"] + n_adm) % Q,
+                  count=bl_count - n_adm)
+    uid_w = None
+    if cfg.serve:
+        # the dump slot keeps -1, so the state is the same from run to run
+        # whatever order duplicate writes land in
+        bl_new["uid"] = bl["uid"].scatter(1, posw, torch.where(
+            slot < n_push[:, None], uid_base[:, None] + slot, -1))
+        uid_w = torch.gather(bl_new["uid"], 1, src)
     # fresh-task draws at ADMISSION (difficulty mixture + label)
     uw = _uniform_block(seed ^ 0x33CC33CC, step, 2 * Ws).reshape(B, 2, Ws)
     diff = torch.where(uw[:, 0] < cfg.p_hard, cfg.hard_scale, 1.0)
@@ -393,17 +417,18 @@ def _admit_fifo(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
         uf = _uniform_block(seed ^ 0x5EEDF00D, step, 2 * Ws * F
                             ).reshape(B, 2, Ws, F)
         featw = _task_features(uf[:, 0], uf[:, 1], tl, diff, L, C)
-    return bl, dropped, admit, arr_t, diff, tl, featw
+    return bl_new, dropped, admit, arr_t, diff, tl, featw, uid_w
 
 
 def _admit_ranked(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
-                  seed, lp):
+                  seed, lp, uid_base=None):
     """Learner-driven admission: this tick's arrivals draw their identity
     (difficulty, label, features) now and take the free slots of the
     slot-array backlog (the i-th arrival the i-th free slot); queued tasks
     enter the window most uncertain first under the current model (times
     the learnability head's estimate under ``uncertain_learnable``), ties
-    in slot order. Returns what :func:`_admit_fifo` does."""
+    in slot order. Serve mode's uids take the arrivals' backlog slots.
+    Returns what :func:`_admit_fifo` does."""
     C, Q, M = cfg.n_classes, cfg.backlog, cfg.max_arrivals_per_tick
     L, R, B, dev = cfg.learner, cfg.routing, seed.shape[0], seed.device
     F = L.n_features
@@ -450,19 +475,27 @@ def _admit_ranked(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
     tl = torch.gather(bl_tlab, 1, src)
     featw = torch.gather(bl_feat, 1, src[..., None].expand(-1, -1, F))
     occ = occ & ~admit_bl
-    bl = dict(times=bl_times, diff=bl_diff, tlab=bl_tlab, feat=bl_feat,
-              occ=occ, count=occ.sum(-1))
-    return bl, dropped, admit, arr_t, diff, tl, featw
+    bl_new = dict(times=bl_times, diff=bl_diff, tlab=bl_tlab, feat=bl_feat,
+                  occ=occ, count=occ.sum(-1))
+    uid_w = None
+    if cfg.serve:
+        bl_new["uid"] = bl["uid"].scatter(
+            1, dstw, torch.where(ok, uid_base[:, None] + slot, -1))
+        uid_w = torch.gather(bl_new["uid"], 1, src)
+    return bl_new, dropped, admit, arr_t, diff, tl, featw, uid_w
 
 
 def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
-                step: int, seed, warmup_t: float, lp: Optional[dict] = None):
+                step: int, seed, warmup_t: float, lp: Optional[dict] = None,
+                uid_base=None):
     """Advance every shard by one tick. ``n_arr`` (B,) are this tick's
     arrivals per shard, ``t`` the tick's time and ``step`` its index (host
     numbers), ``seed`` (B,) the counter seeds, ``lp`` the learner's
     parameters expanded to B (:func:`_learner_tick_params`; None without a
-    learner). Returns ``(ws, win, bl, metrics, train)``; ``train`` holds
-    the finalized examples for the learner's ring (None without one)."""
+    learner), ``uid_base`` (B,) the first uid of each shard's arrivals in
+    serve mode. Returns ``(ws, win, bl, metrics, train)``; ``train`` holds
+    the finalized examples for the learner's ring (None without one); in
+    serve mode ``metrics`` also holds the per-slot ``srv_*`` outputs."""
     P, Ws, C = cfg.pool_size, cfg.window, cfg.n_classes
     cap = cfg.policy.votes_cap
     pol, fast, L, R = cfg.policy, cfg.fast, cfg.learner, cfg.routing
@@ -479,11 +512,11 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
         gate = torch.ones((B,), dtype=torch.bool, device=dev)
     frank = torch.cumsum(free.to(torch.int64), -1) - 1
     if R.admission != "fifo":
-        bl, dropped, admit, arr_t, diff, tl, featw = _admit_ranked(
-            cfg, bl, n_arr, free, frank, gate, t, step, seed, lp)
+        bl, dropped, admit, arr_t, diff, tl, featw, uid_w = _admit_ranked(
+            cfg, bl, n_arr, free, frank, gate, t, step, seed, lp, uid_base)
     else:
-        bl, dropped, admit, arr_t, diff, tl, featw = _admit_fifo(
-            cfg, bl, n_arr, free, frank, gate, t, step, seed)
+        bl, dropped, admit, arr_t, diff, tl, featw, uid_w = _admit_fifo(
+            cfg, bl, n_arr, free, frank, gate, t, step, seed, uid_base)
     bl_count = bl["count"]
     win = dict(win)
     win["active"] = win["active"] | admit
@@ -494,6 +527,8 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     win["logpost"] = torch.where(admit[..., None], 0.0, win["logpost"])
     if L.enabled:
         win["feat"] = torch.where(admit[..., None], featw, win["feat"])
+    if cfg.serve:
+        win["uid"] = torch.where(admit, uid_w, win["uid"])
 
     # ---- completions -> votes -> online posterior -----------------------
     ws = dict(ws)
@@ -571,7 +606,7 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
         fused = win["logpost"]
 
     # ---- finalization (adaptive redundancy) -----------------------------
-    fin, _conf = should_finalize(fused, win["n_votes"], pol)
+    fin, conf = should_finalize(fused, win["n_votes"], pol)
     if L.enabled:
         fin = fin | known_fin
     fin = fin & win["active"]
@@ -695,6 +730,12 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
         in_flight=win["active"].sum(-1),
         model_known=((wfin & known).sum(-1) if L.enabled
                      else torch.zeros_like(done_d)))
+    if cfg.serve:
+        # per-slot finalization outputs for the live serving front end:
+        # which slots finalized this tick, their request uids, fused-label
+        # answers, vote counts, posterior confidence and time in system
+        metrics.update(srv_fin=fin, srv_uid=win["uid"], srv_label=result,
+                       srv_votes=win["n_votes"], srv_conf=conf, srv_tis=tis)
     train = None
     if L.enabled:
         # finalized (features, label) pairs for the learner's ring. The
@@ -738,38 +779,48 @@ def _steal_rebalance(cfg: StreamConfig, bl):
     replication (FIFO ring). Donors pop their OLDEST entries (arrival times
     are task identity under FIFO admission), the donations are pooled per
     replication in donation-rank order, and receivers append their claimed
-    ranks at the tail: the replication's backlog multiset is unchanged.
-    Returns ``(bl, received, donated)``, the counts (B,)."""
+    ranks at the tail: the replication's backlog multiset is unchanged. In
+    serve mode the uid ring moves by the same plan. Returns ``(bl,
+    received, donated)``, the counts (B,)."""
     sh = cfg.sharding
     S, Q, K = cfg.n_shards, cfg.backlog, sh.steal_max
     B = bl["count"].shape[0]
     N, dev = B // S, bl["count"].device
     counts = bl["count"].reshape(N, S)
     head = bl["head"].reshape(N, S)
-    times = bl["times"].reshape(N, S, Q + 1)
     give, take = _steal_plan(counts, K, sh.steal_slack)
     gcum = torch.cumsum(give, -1) - give                    # donation ranks
     tcum = torch.cumsum(take, -1) - take                    # claim ranks
     k = torch.arange(K, device=dev)
     # donors pop their oldest entries off the ring head
-    don = torch.gather(times, 2, (head[..., None] + k) % Q)  # (N, S, K)
+    pos = (head[..., None] + k) % Q                         # (N, S, K)
     head = (head + give) % Q
     count = counts - give
     validd = k < give[..., None]
-    ranks = torch.where(validd, gcum[..., None] + k, S * K)
-    pool = torch.zeros((N, S * K + 1), device=dev).scatter(
-        1, ranks.reshape(N, -1),
-        torch.where(validd, don, 0.0).reshape(N, -1))[:, :S * K]
+    ranks = torch.where(validd, gcum[..., None] + k, S * K).reshape(N, -1)
     # receivers claim consecutive ranks and append at their tail
     validc = k < take[..., None]
-    incoming = torch.gather(
-        pool, 1, torch.where(validc, tcum[..., None] + k, 0).reshape(N, -1)
-    ).reshape(N, S, K)
-    posr = (head[..., None] + count[..., None] + k) % Q
-    times = times.scatter(2, torch.where(validc, posr, Q),
-                          torch.where(validc, incoming, 0.0))
-    new = dict(times=times.reshape(B, Q + 1), head=head.reshape(B),
+    claim = torch.where(validc, tcum[..., None] + k, 0).reshape(N, -1)
+    posr = torch.where(validc, (head[..., None] + count[..., None] + k) % Q,
+                       Q)
+
+    def move(ring, fill):
+        # the donations pooled in rank order (the dump entry S*K and the
+        # ring's dump slot Q only ever take ``fill``)
+        ring = ring.reshape(N, S, Q + 1)
+        don = torch.gather(ring, 2, pos)
+        pool = torch.full((N, S * K + 1), fill, dtype=ring.dtype,
+                          device=dev).scatter(
+            1, ranks, torch.where(validd, don, fill).reshape(N, -1)
+        )[:, :S * K]
+        incoming = torch.gather(pool, 1, claim).reshape(N, S, K)
+        return ring.scatter(2, posr, torch.where(validc, incoming, fill)
+                            ).reshape(B, Q + 1)
+
+    new = dict(times=move(bl["times"], 0.0), head=head.reshape(B),
                count=(count + take).reshape(B))
+    if "uid" in bl:
+        new["uid"] = move(bl["uid"], -1)
     return new, take.reshape(B), give.reshape(B)
 
 
@@ -1001,8 +1052,10 @@ def _validate_stream_config(cfg: StreamConfig):
     another path."""
     L = cfg.learner
     if cfg.serve:
-        raise NotImplementedError(
-            "StreamConfig.serve=True (live serve mode) is not yet ported")
+        raise ValueError(
+            "StreamConfig.serve=True is the live-injection mode: drive it "
+            "one tick at a time via serve_init/serve_tick (repro_torch."
+            "serving.server), not through the run_stream* simulators")
     if L.enabled and L.n_features < cfg.n_classes:
         raise ValueError("learner.n_features must be >= n_classes "
                          "(one-hot class means)")
@@ -1155,3 +1208,155 @@ def stream_summary(cfg: StreamConfig, out) -> dict:
         / reps,
         hist_saturated=bool(hist.size and hist[-1] > 0),
     )
+
+
+# --------------------------------------------------------------------------
+# live serving: single-tick stepping with injected arrivals
+# --------------------------------------------------------------------------
+#
+# ``repro_torch.serving.server`` drives the router ONE tick at a time:
+# pending HTTP submissions are micro-batched into per-shard injected
+# arrival counts (``StreamConfig.serve`` replaces the sampled arrival
+# process with exact counts and threads a request uid through backlog,
+# window slot and steal), the state stays on the device between ticks, and
+# the tick's small ``srv_*`` outputs leave it in one copy
+# (:func:`serve_out_numpy`).
+
+def _as_serve_config(cfg) -> StreamConfig:
+    """Accept a serve-mode StreamConfig or a declarative ScenarioSpec
+    (lowered through ``to_serve_config``, which sets ``serve=True``)."""
+    if isinstance(cfg, StreamConfig):
+        return cfg
+    from repro_torch.scenarios.compile import to_serve_config
+    return to_serve_config(cfg)
+
+
+def _validate_serve_config(cfg: StreamConfig):
+    _validate_stream_config(dataclasses.replace(cfg, serve=False))
+    if not cfg.serve:
+        raise ValueError(
+            "serve_init/serve_tick require StreamConfig.serve=True "
+            "(compile the scenario through "
+            "repro_torch.scenarios.compile.to_serve_config)")
+
+
+def serve_state_from_numpy(cfg, state: dict, device="cuda") -> dict:
+    """The port's serve state from a serve state given as numpy arrays
+    (the reference's ``serve_init`` state, say): ``t``, ``step``, the
+    per-shard ``seeds`` (S,) and worker state ``ws`` and ``banks`` (leading
+    dim S), and with the learner ``learn`` (the seven ``LinearLearner``
+    leaves), ``buf_X``, ``buf_y``, ``buf_n`` (and under
+    ``uncertain_learnable`` ``learn2`` and ``buf_t``). Window and backlog
+    start empty."""
+    cfg = _as_serve_config(cfg)
+    _validate_serve_config(cfg)
+    lead = lambda d: {k: np.asarray(v)[None] for k, v in d.items()}
+    learner = None
+    if cfg.learner.enabled:
+        learner = {k: ([np.asarray(a)[None] for a in state[k]]
+                       if k in ("learn", "learn2") else
+                       np.asarray(state[k])[None])
+                   for k in ("learn", "buf_X", "buf_y", "buf_n", "learn2",
+                             "buf_t") if k in state}
+    st = state_from_numpy(cfg, lead(state["ws"]), lead(state["banks"]),
+                          np.asarray(state["seeds"])[None], device,
+                          learner=learner)
+    return dict(st, t=np.float32(state["t"]), step=int(state["step"]))
+
+
+def serve_init(cfg, seed: int = 0, device="cuda") -> dict:
+    """The state :func:`serve_tick` advances, on ``device``.
+
+    ``cfg`` is a StreamConfig with ``serve=True`` (or a ScenarioSpec,
+    lowered by ``to_serve_config``). ``seed`` fixes the worker pools and
+    the counter seeds (a numpy generator, as :func:`draw_init` for one
+    replication) and through them every per-tick draw, so the label stream
+    of a given injection schedule is deterministic. Returns a dict of
+    tensors plus the host clock ``t`` and tick index ``step``."""
+    cfg = _as_serve_config(cfg)
+    _validate_serve_config(cfg)
+    st = state_from_numpy(cfg, *draw_init(cfg, 1, seed), device)
+    return dict(st, t=np.float32(0.0), step=0)
+
+
+_SRV_SLOT = ("fin", "uid", "label", "votes")        # (S, window) integers
+_SRV_FLOAT = ("conf", "tis")                        # (S, window) float32
+_SRV_SHARD = ("dropped", "backlog", "in_flight", "stolen", "donated")
+
+
+def serve_tick(cfg, state: dict, n_arr, uid_base, feat=None, labels=None):
+    """Advance the live service by ONE tick with injected arrivals.
+
+    ``n_arr[s]`` (host integers, 0 <= n <= ``cfg.max_arrivals_per_tick``)
+    tasks enter shard ``s`` this tick carrying uids ``uid_base[s] ..
+    uid_base[s] + n_arr[s] - 1`` (the caller's per-shard monotonic
+    counters); both reach the device in one copy. Injections beyond free
+    backlog capacity are dropped from the TAIL of this tick's batch:
+    ``out["dropped"][s]`` counts them. ``state`` is not modified; keep the
+    returned state. Returns ``(state, out)``: ``out["fin"]`` masks the
+    window slots finalized this tick and ``uid`` / ``label`` / ``votes`` /
+    ``conf`` / ``tis`` give their request uid, fused label, vote count,
+    posterior confidence and time in system (S, window); ``dropped``,
+    ``backlog``, ``in_flight``, ``stolen``, ``donated`` are per shard (S,),
+    all tensors on the state's device; ``t`` is the post-tick clock (a
+    host float). ``feat`` / ``labels`` (real-text injections) need LM
+    features, which are not ported yet (ROADMAP A12b)."""
+    cfg = _as_serve_config(cfg)
+    if feat is not None or labels is not None:
+        raise ValueError(
+            "serve_tick feat/labels injections require learner."
+            "feature_kind='lm' (Gaussian tasks draw identity in the tick)")
+    S, M = cfg.n_shards, cfg.max_arrivals_per_tick
+    inj = np.stack([np.asarray(n_arr, np.int64).reshape(-1),
+                    np.asarray(uid_base, np.int64).reshape(-1)])
+    if inj.shape != (2, S):
+        raise ValueError(f"n_arr and uid_base must be ({S},), got "
+                         f"{np.shape(n_arr)} / {np.shape(uid_base)}")
+    if (inj[0] < 0).any() or (inj[0] > M).any():
+        raise ValueError(f"n_arr must be in [0, max_arrivals_per_tick={M}], "
+                         f"got {inj[0].tolist()}")
+    seeds = state["seeds"]
+    inj = torch.as_tensor(inj, device=seeds.device)
+    t, step, ls = state["t"], state["step"], state["learner"]
+    ws, win, bl, m, train = _shard_tick(
+        cfg, state["ws"], state["banks"], state["win"], state["bl"], inj[0],
+        float(t), step, seeds, 0.0, _learner_tick_params(cfg, ls),
+        uid_base=inj[1])
+    if cfg.sharding.steal != "none":
+        bl, got, gave = _steal_rebalance(cfg, bl)
+    else:
+        got = gave = torch.zeros_like(m["dropped"])
+    if ls is not None:
+        ls = _learner_push_fit(cfg, ls, train, step)
+    t_new = np.float32(t + np.float32(cfg.dt))
+    new = dict(state, ws=ws, win=win, bl=bl, learner=ls, t=t_new,
+               step=step + 1)
+    out = {k: m["srv_" + k] for k in _SRV_SLOT + _SRV_FLOAT}
+    out.update(dropped=m["dropped"], backlog=bl["count"],
+               in_flight=win["active"].sum(-1), stolen=got, donated=gave,
+               t=float(t_new))
+    return new, out
+
+
+def serve_out_numpy(out: dict) -> dict:
+    """:func:`serve_tick`'s outputs as numpy arrays, in one device-to-host
+    copy: every tensor is packed into one int64 buffer on the device first
+    (the float32 ones by their bits), so the host reads back exactly what
+    the device computed. ``t`` passes through."""
+    S, Ws = out["fin"].shape
+    parts = [out[k].to(torch.int64).reshape(-1) for k in _SRV_SLOT]
+    parts += [out[k].view(torch.int32).to(torch.int64).reshape(-1)
+              for k in _SRV_FLOAT]
+    parts += [out[k].to(torch.int64) for k in _SRV_SHARD]
+    buf = torch.cat(parts).cpu().numpy()
+    host, i = {}, 0
+    for k in _SRV_SLOT + _SRV_FLOAT + _SRV_SHARD:
+        n = S if k in _SRV_SHARD else S * Ws
+        v = buf[i:i + n]
+        i += n
+        if k in _SRV_FLOAT:
+            v = v.astype(np.int32).view(np.float32)
+        host[k] = v.reshape((S,) if k in _SRV_SHARD else (S, Ws))
+    host["fin"] = host["fin"].astype(bool)
+    host["t"] = out["t"]
+    return host

@@ -102,7 +102,7 @@ def scored_match(scores, avail, tier1, tier2, shift):
     t1r = torch.gather(tier1, 1, perm)
     t2r = torch.gather(tier2, 1, perm)
     sr = torch.gather(scores, 2, perm[:, None, :].expand(Bn, P, W))
-    neg = torch.tensor(-float("inf"), device=dev)
+    neg = -float("inf")          # a host number: no copy to the device
     prio = torch.where((t1r | t2r)[:, None, :], sr, neg).amax(-1)
     # stable: equal priorities keep slot order, which makes constant scores
     # collapse to priority_match
@@ -137,8 +137,7 @@ def admit_select(unc, occupied, n_adm):
     ``n_adm`` (B,). Returns ``(admit, order)``: the per-slot admit mask and
     the ranking, ``order[:, r]`` the slot of the r-th admitted task."""
     Q = unc.shape[-1]
-    neg = torch.tensor(-float("inf"), device=unc.device)
-    key = torch.where(occupied, unc, neg)       # empty slots sort last
+    key = torch.where(occupied, unc, -float("inf"))   # empty slots last
     order = torch.argsort(-key, dim=-1, stable=True)
     ranks = torch.arange(Q, device=unc.device).expand_as(order)
     rank = torch.empty_like(order).scatter(1, order, ranks)

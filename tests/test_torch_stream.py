@@ -164,7 +164,7 @@ def test_stream_matches_reference_with_injected_draws(name, overrides):
      NotImplementedError),
     (dict(trace=object()), NotImplementedError),
     (dict(sharding=ShardingConfig(n_devices=2)), NotImplementedError),
-    (dict(serve=True), NotImplementedError),
+    (dict(serve=True), ValueError),
     (dict(routing=RoutingConfig(admission="uncertain")), ValueError),
     (dict(routing=RoutingConfig(admission="lifo")), ValueError),
     (dict(sharding=ShardingConfig(steal="greedy")), ValueError),
