@@ -96,8 +96,8 @@ drives the port's main path on the card:
      the posterior, uncertainty-first routing) with the EM refresh, (b)
      ``chance_hard`` (scored routing) with ``uncertain_learnable``
      admission (the learnability head), (c) ``stream_sharded`` (8 shards,
-     pressure stealing) for 480 ticks and (d) the same at 20x its rate for
-     480 ticks, where shards do steal ((b) also at 480 ticks); each twice,
+     pressure stealing) for 240 ticks and (d) the same at 20x its rate for
+     240 ticks, where shards do steal ((b) at 480 ticks); each twice,
      bit for bit in every integer
      output, conservation exact, (a)'s 216 E-steps on the task route,
      ``model_known > 0`` with the learner, as much stolen as donated, and
@@ -108,7 +108,7 @@ drives the port's main path on the card:
  15. the scenario front door and the live serve path: (a) the registry
      smoke (``repro_torch.scenarios.smoke``) on the card, every (scenario,
      ported engine) pair, the pairs not ported yet listed as ``[TODO]``;
-     (b) ``serve_tick`` driven directly for 2000 ticks on
+     (b) ``serve_tick`` driven directly for 1000 ticks on
      ``serve_default``, ``stream_sharded`` and ``chance_hard`` with
      ``uncertain_learnable`` admission, injections steering each shard's
      backlog near its capacity: each twice, bit for bit, conservation
@@ -119,7 +119,23 @@ drives the port's main path on the card:
      (``LabelServer``) on a loopback port: the launcher's smoke (4 clients
      x 8 tasks), then 16 clients x 64 waiting tasks on ``serve_default``,
      every one answered with conservation exact; answered tasks per
-     second, p50 / p95 wall latency and the tick's cold / warm time.
+     second, p50 / p95 wall latency and the tick's cold / warm time;
+ 16. traces and traced sweeps: (a) phase 4's run with ``trace.enabled``
+     through ``scenarios.run``: every output of phase 4's untraced run
+     equal bit for bit, its 216 E-steps on the task route, backlog wait +
+     window wait + work time = time in system, the trace artifact written,
+     read back and rendered, the phase means and p95s, ticks per second,
+     a profiled 80-tick window, and traced against untraced in turns;
+     (b) ``run_stream_sweep`` over rates 0.5x-4x and (c)
+     ``run_stream_votes_sweep`` over caps 3 / 5 / 7 / 9 with the refresh
+     (its E-step 9 votes wide, held against the plain version at that
+     shape and timed), each 64 replications x 480 ticks, and (d)
+     ``scenarios.sweep`` over ``pool.acc_a`` and ``difficulty.p_hard`` at
+     240 ticks: each sweep one batched run, every point's integer outputs
+     equal to its standalone run's (floats within 1e-6 relative), the
+     batched run's time against the per-value runs'; (e) ``smallR1``
+     traced equal to untraced, and the batch engine's ``pool.median_mu``
+     and ``pool.acc_b`` sweeps equal to their standalone runs.
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -426,21 +442,22 @@ def stream_learner_phase(card: str):
     runs = [
         ("a", "skewed_learner_fused with the refresh",
          get_stream_config("skewed_learner_fused", refresh), H),
-        # (b), (c) and (d) run a third of the horizon, to keep the smoke
-        # run near half its time limit with phase 15 after them
+        # (b) runs a third of the horizon and (c), (d) a sixth, to keep
+        # the smoke run well inside its time limit with phases 15-16 after
+        # them
         ("b", "chance_hard with uncertain_learnable admission, horizon cut "
          f"to {H // 3} ticks",
          get_stream_config("chance_hard", {"routing": RoutingConfig(
              enabled=True, admission="uncertain_learnable")}), H // 3),
         ("c", "stream_sharded (8 shards, pressure stealing), horizon cut "
-         f"to {H // 3} ticks",
-         get_stream_config("stream_sharded"), H // 3),
+         f"to {H // 6} ticks",
+         get_stream_config("stream_sharded"), H // 6),
         # the registry's stream_sharded never builds a backlog, so nothing
         # is stolen; at 20x its rate shards do steal
         ("d", "stream_sharded at 20x its rate (stealing under load), "
-         f"horizon cut to {H // 3} ticks",
+         f"horizon cut to {H // 6} ticks",
          get_stream_config("stream_sharded", {"arrivals": ArrivalConfig(
-             kind="poisson", rate=0.8)}), H // 3),
+             kind="poisson", rate=0.8)}), H // 6),
     ]
     tick_us = {}
     for label, what, cfg, h in runs:
@@ -566,6 +583,325 @@ def stream_learner_phase(card: str):
                 "measured (no device events)")
 
 
+def _outputs(out, prefix="") -> dict:
+    """A run's tensors as one flat dict (nested series and per-shard
+    diagnostics under dotted names)."""
+    flat = {}
+    for k, v in out.items():
+        if isinstance(v, dict):
+            flat.update(_outputs(v, f"{prefix}{k}."))
+        elif torch.is_tensor(v):
+            flat[prefix + k] = v
+    return flat
+
+
+def _point(out, i: int):
+    """Point ``i`` of a sweep's ``(V, n_reps, ...)`` outputs."""
+    if isinstance(out, dict):
+        return {k: _point(v, i) for k, v in out.items()}
+    return out[i] if torch.is_tensor(out) else out
+
+
+def hold_point(tag: str, got: dict, want: dict) -> float:
+    """Point ``got`` of a batched sweep against its standalone run
+    ``want``: every integer output equal (else fail), and the largest
+    relative difference of the float outputs returned (0.0 when they are
+    bit-equal; a batched run's reductions need not round as a narrower
+    run's do on the card)."""
+    g, w = _outputs(got), _outputs(want)
+    check(set(w) <= set(g), f"{tag} lacks {sorted(set(w) - set(g))}")
+    diff = [k for k, v in w.items() if not v.is_floating_point()
+            and not torch.equal(g[k], v)]
+    check(not diff, f"{tag} integer outputs differ from the standalone run: "
+          f"{diff}")
+    rel = 0.0
+    for k, v in w.items():
+        if v.is_floating_point() and not torch.equal(g[k], v):
+            d = (g[k].double() - v.double()).abs()
+            d = d[torch.isfinite(d)]
+            scale = v.double().abs().max().item() or 1.0
+            rel = max(rel, (d.max().item() if d.numel() else 0.0) / scale)
+    check(rel <= 1e-6, f"{tag} float outputs differ by {rel:.3g} relative")
+    return rel
+
+
+def traced_sweeps_phase(card: str, phase4: dict) -> dict:
+    """Phase 16: traces and traced sweeps on the card (see the module
+    docstring). ``phase4`` holds phase 4's untraced run (on the host), its
+    wall seconds and its kernels per tick. Returns the ``ds_estep`` numbers
+    at the votes sweep's shape for the ``kernels`` line."""
+    import tempfile
+    from repro_torch import scenarios as scen
+    from repro_torch.core import simfast
+    from repro_torch.kernels.ds_estep import ds_estep, estep_route
+    from repro_torch.kernels.ref import ds_estep_ref
+    from repro_torch.labelstream import router
+    from repro_torch.obs import export, report
+
+    refresh = {"policy.learner.refresh_every": 40,
+               "policy.learner.refresh_iters": 6}
+    H, N, SEED = 1440, 256, 0
+
+    # (a) the traced stream: phase 4's run with trace.enabled
+    spec = scen.get_scenario("skewed_adaptive5",
+                             {**refresh, "trace.enabled": True})
+    ds_estep.launches = ds_estep.task_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = scen.run(spec, engine="stream", horizon=H, n_reps=N, seed=SEED,
+                   device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, task = ds_estep.launches, ds_estep.task_launches
+    cfg = res["config"]
+    check(launches == task == H // 40 * 6, f"[trace a] made {launches} "
+          f"E-step launches ({task} on the task route), expected "
+          f"{H // 40 * 6}")
+    out = res["raw"]
+    flat, want = _outputs(out), phase4["out"]
+    diff = [k for k in want if not torch.equal(flat[k].cpu(), want[k])]
+    check(not diff, f"[trace a] the traced run differs from phase 4's "
+          f"untraced run in {diff}")
+    s3 = sum(float(out["ps_" + pk].sum()) for pk in
+             ("backlog_wait", "window_wait", "work_time"))
+    tis = float(out["sum_tis"].sum())
+    check(tis > 0 and abs(s3 - tis) <= 1e-3 * tis,
+          f"[trace a] backlog + window wait + work time {s3} != time in "
+          f"system {tis}")
+    say(f"[trace a] skewed_adaptive5 + refresh, traced: {N} reps x "
+        f"{cfg.n_shards} shards x {H} ticks in {secs:.2f} s "
+        f"({H / secs:.1f} ticks/s; phase 4 untraced "
+        f"{H / phase4['secs']:.1f}); ds_estep launches {launches} (task "
+        f"route {task}); every output of phase 4's untraced run equal bit "
+        f"for bit; backlog + window wait + work time {s3:.6g} s = time in "
+        f"system {tis:.6g} s; {card}")
+    for pk, m in res["metrics"]["phases"].items():
+        say(f"[trace a]   {pk:13s} mean {m['mean']:9.3f} s, p50 "
+            f"{m['p50']:7.1f} s, p95 {m['p95']:7.1f} s"
+            f"{' (saturated)' if m['hist_saturated'] else ''}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export.write_trace(res["trace"], directory=tmp,
+                                  name="skewed_adaptive5")
+        doc = export.read_trace(path)
+        check(doc["header"]["engine"] == "stream"
+              and len(doc["phases"]) == 4 and len(doc["series"]) >= 10,
+              "[trace a] the artifact does not read back")
+        txt = report.render(doc)
+        size = Path(path).stat().st_size
+    check("latency sources" in txt, "[trace a] the report lacks its table")
+    say(f"[trace a] artifact {size} bytes, {sum(map(len, doc.values())) - 1} "
+        "lines after the header, read back and rendered:")
+    for line in txt.splitlines()[:9]:
+        say(f"[trace a]   {line}")
+    Hp = 80
+    wall, n_k, busy, _ = device_profile(
+        lambda: router.run_stream(cfg, Hp, n_reps=N, seed=SEED + 1,
+                                  device="cuda"))
+    if n_k:
+        say(f"[profile] traced stream {Hp} ticks: {n_k / Hp:.0f} kernels "
+            f"per tick (phase 4 untraced: "
+            f"{phase4['kpt'] if phase4['kpt'] else 'not measured'}), device "
+            f"busy {busy / Hp:.0f} us per tick; device idle "
+            f"{(1 - busy / Hp / (secs / H * 1e6)) * 100:.1f}% of the "
+            f"unprofiled tick; {card}")
+    else:
+        say("[profile] traced stream: device time not measured")
+    del res, out, flat
+    # what observing costs, in turns in this call (untraced, traced,
+    # traced, untraced): phase 4's and (a)'s ticks/s come minutes apart
+    Ht, rates = 240, {"untraced": [], "traced": []}
+    plain_cfg = dataclasses.replace(cfg, trace=None)
+    for which in ("untraced", "traced", "traced", "untraced"):
+        one = cfg if which == "traced" else plain_cfg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        router.run_stream(one, Ht, n_reps=N, seed=SEED + 2, device="cuda")
+        torch.cuda.synchronize()
+        rates[which].append(Ht / (time.perf_counter() - t0))
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    say(f"[trace a] in turns ({Ht} ticks x {N} reps): untraced "
+        f"{', '.join(f'{r:.1f}' for r in rates['untraced'])} ticks/s, "
+        f"traced {', '.join(f'{r:.1f}' for r in rates['traced'])}: the "
+        f"trace costs {(1 - mean['traced'] / mean['untraced']) * 100:.1f}% "
+        f"of the ticks/s; {card}")
+    base4 = scen.get_scenario("skewed_adaptive5", refresh)
+    cfg4 = scen.to_stream_config(base4)
+    Hs, Ns = 480, 64
+
+    # (b) the rate sweep against the four per-value runs
+    scales = [0.5, 1.0, 2.0, 4.0]
+    t0 = time.perf_counter()
+    for sc in scales:
+        router.draw_arrivals(cfg4, Hs, Ns, seed=SEED, rate_scale=sc,
+                             device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sw = router.run_stream_sweep(cfg4, Hs, scales, n_reps=Ns, seed=SEED,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    loop_s, rel = 0.0, 0.0
+    for i, sc in enumerate(scales):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = router.run_stream(cfg4, Hs, n_reps=Ns, seed=SEED,
+                                rate_scale=sc, device="cuda")
+        torch.cuda.synchronize()
+        loop_s += time.perf_counter() - t0
+        rel = max(rel, hold_point(f"[sweep b] scale {sc}", _point(sw, i),
+                                  one))
+    done = [int(sw["done"][i].sum()) for i in range(len(scales))]
+    say(f"[sweep b] rate sweep {scales} x {Ns} reps x {Hs} ticks as one "
+        f"batched run: {sweep_s:.2f} s ({Hs / sweep_s:.1f} ticks/s, "
+        f"{len(scales) * Hs / sweep_s:.1f} point-ticks/s), of which the "
+        f"arrivals' pre-draw ~{draw_s:.2f} s; the four per-value runs "
+        f"{loop_s:.2f} s ({len(scales) * Hs / loop_s:.1f} point-ticks/s): "
+        f"{loop_s / sweep_s:.2f}x; every point equals run_stream at its "
+        f"scale (integers equal, floats max rel {rel:.3g}); done per point "
+        f"{done}; {card}")
+    del sw
+
+    # (c) the votes sweep with the refresh: the E-step at V = 9
+    caps = [3, 5, 7, 9]
+    ds_estep.launches = ds_estep.task_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sw = router.run_stream_votes_sweep(cfg4, Hs, caps, n_reps=Ns, seed=SEED,
+                                       device="cuda")
+    torch.cuda.synchronize()
+    vsweep_s = time.perf_counter() - t0
+    v_launches, v_task = ds_estep.launches, ds_estep.task_launches
+    want_l = Hs // 40 * 6
+    check(v_launches == v_task == want_l, f"[sweep c] made {v_launches} "
+          f"E-step launches ({v_task} on the task route), expected {want_l}")
+    rel, loop_s = 0.0, 0.0
+    for i, c in enumerate(caps):
+        one_cfg = dataclasses.replace(cfg4, policy=dataclasses.replace(
+            cfg4.policy, votes_cap=c))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = router.run_stream(one_cfg, Hs, n_reps=Ns, seed=SEED,
+                                device="cuda")
+        torch.cuda.synchronize()
+        loop_s += time.perf_counter() - t0
+        rel = max(rel, hold_point(f"[sweep c] cap {c}", _point(sw, i), one))
+    vpt = [float(sw["votes_fin"][i].sum() / sw["done"][i].sum())
+           for i in range(len(caps))]
+    say(f"[sweep c] votes sweep {caps} x {Ns} reps x {Hs} ticks with the "
+        f"refresh: {vsweep_s:.2f} s ({Hs / vsweep_s:.1f} ticks/s); the four "
+        f"standalone runs {loop_s:.2f} s ({loop_s / vsweep_s:.2f}x); "
+        f"ds_estep launches {v_launches} (task route {v_task}); every point "
+        f"equals run_stream at its cap (integers equal, floats max rel "
+        f"{rel:.3g}); votes per task {[round(v, 3) for v in vpt]}; {card}")
+    del sw
+    # the E-step at the sweep's shape: B = points x reps x shards, T = the
+    # window, V = the largest cap, against its plain version
+    B9, W9, C9, T9, V9 = (len(caps) * Ns * cfg4.n_shards, cfg4.pool_size + 1,
+                          cfg4.n_classes, cfg4.window, max(caps))
+    R9 = W9 * C9 + 1
+    check(estep_route(B9, R9, C9, T9, V9) == "task",
+          "[sweep c] the votes sweep's E-step is not on the task route")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    rows, idx = make_estep_inputs(gen, B9, W9, C9, T9, V9,
+                                  torch.device("cuda"))
+    idx[:, 0, :] = R9 - 1                       # a task with no votes
+    lr, pr = ds_estep_ref(rows, idx)
+    lp, pp = ds_estep(rows, idx)
+    torch.cuda.synchronize()
+    err = (pp - pr).abs().max().item()
+    check(torch.equal(lp, lr) and err <= 1e-5
+          and bool((pp[:, 0] == 1.0 / C9).all()),
+          f"[sweep c] ds_estep disagrees with its plain version at B={B9} "
+          f"T={T9} V={V9} (max|dpost| {err:.3g})")
+    reps = 200
+    ms = cuda_ms(lambda: ds_estep(rows, idx), reps)
+
+    def many():
+        for _ in range(reps):
+            ds_estep(rows, idx)
+    dev_us, _ = mean_us(kernel_events(many)[1], "ds_estep")
+    plain = cuda_ms(lambda: ds_estep_ref(rows, idx), reps)
+    bound, by, nbytes = estep_bound_ms(B9, R9, C9, T9, V9)
+    say(f"[sweep c] ds_estep at the votes sweep's shape (B={B9}, T={T9}, "
+        f"V={V9}, R={R9}, C={C9}), task route: logp bit-equal to the plain "
+        f"version, max|dpost| {err:.3g} (tol 1e-5), a zero-vote task "
+        f"exactly uniform; per call {ms * 1e3:.2f} us, device "
+        f"{fmt_us(dev_us / 1e3 if dev_us else None)}, bound "
+        f"{bound * 1e3:.3f} us ({by}, {nbytes} B), plain per call "
+        f"{plain * 1e3:.2f} us; {card}")
+    estep9 = dict(launches=v_launches, max_abs_err=err, ms=ms,
+                  plain_ms=plain, bound_ms=bound, bound_by=by)
+
+    # (d) the grid axes through the front door, at half the horizon
+    Hg = Hs // 2
+    for axis, values in (("pool.acc_a", [4.0, 9.0, 18.0, 40.0]),
+                         ("difficulty.p_hard", [0.0, 0.25, 0.5])):
+        ds_estep.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs = scen.sweep(base4, axis, values, horizon=Hg, n_reps=Ns,
+                        seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        check(gs["vectorized"] is True, f"[grid d] {axis} ran per value")
+        check(ds_estep.launches == Hg // 40 * 6, f"[grid d] {axis} made "
+              f"{ds_estep.launches} E-step launches, expected "
+              f"{Hg // 40 * 6}")
+        rel = 0.0
+        for i, v in enumerate(values):
+            one = scen.run(scen.override(base4, {axis: v}), horizon=Hg,
+                           n_reps=Ns, seed=SEED, device="cuda")
+            rel = max(rel, hold_point(f"[grid d] {axis}={v}",
+                                      _point(gs["raw"], i), one["raw"]))
+        acc = [round(r["accuracy"], 4) for r in gs["results"]]
+        say(f"[grid d] sweep {axis} {values} x {Ns} reps x {Hg} ticks: "
+            f"{grid_s:.2f} s, one batched run; every point equals "
+            f"scenarios.run at its value (integers equal, floats max rel "
+            f"{rel:.3g}); accuracy {acc}; {card}")
+
+    # (e) the batch engine: traced = untraced, and its two sweeps
+    small = scen.get_scenario("smallR1")
+    a = scen.run(small, n_reps=Ns, seed=SEED, device="cuda")
+    t = scen.run(scen.get_scenario("smallR1", {"trace.enabled": True}),
+                 n_reps=Ns, seed=SEED, device="cuda")
+    diff = [k for k, v in a["raw"].items() if not torch.equal(v, t["raw"][k])]
+    check(not diff, f"[batch e] traced smallR1 differs in {diff}")
+    tr_keys = sorted(k for k in t["raw"] if k.startswith("trace_"))
+    check(len(tr_keys) == 8 and int(t["raw"]["trace_done"].sum())
+          == int(t["raw"]["done"].sum()), "[batch e] the trace counters "
+          "do not add up")
+    say(f"[batch e] smallR1 traced ({Ns} reps): every untraced output equal "
+        f"bit for bit; {len(tr_keys)} trace counters, assigned "
+        f"{int(t['raw']['trace_assigned'][:, -1].sum())}, straggler "
+        f"duplicates {int(t['raw']['trace_dups'][:, -1].sum())}; the "
+        f"artifact has {len(t['trace'])} lines")
+    fcfg = scen.to_fast_config(small)
+    for axis, values in (("pool.median_mu", [75.0, 150.0, 300.0]),
+                         ("pool.acc_b", [1.0, 2.0, 4.0])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs = scen.sweep(small, axis, values, n_reps=Ns, seed=SEED,
+                        device="cuda")
+        torch.cuda.synchronize()
+        sw_s = time.perf_counter() - t0
+        check(gs["vectorized"] is True, f"[batch e] {axis} ran per value")
+        rel = 0.0
+        for i, v in enumerate(values):
+            one = simfast.simulate(dataclasses.replace(
+                fcfg, **{axis.split(".")[1]: v}), Ns, seed=SEED,
+                device="cuda")
+            rel = max(rel, hold_point(f"[batch e] {axis}={v}",
+                                      _point(gs["raw"], i), one))
+        say(f"[batch e] sweep {axis} {values} x {Ns} reps: {sw_s:.2f} s, one "
+            f"batched run; every point equals simulate at its value "
+            f"(integers equal, floats max rel {rel:.3g}); mean total time "
+            f"{[round(r['mean_total_time'], 1) for r in gs['results']]}")
+    return estep9
+
+
 def serve_schedule(cfg, rng, backlog):
     """One tick's injections for phase 15(b): up to the per-tick maximum,
     each shard topped up toward a backlog target near its capacity (the
@@ -621,8 +957,9 @@ def serve_phase(card: str):
     say(f"[serve a] registry smoke on the card passed in "
         f"{time.perf_counter() - t0:.1f} s; {card}")
 
-    # (b) the serve tick, driven directly
-    T, T_CPU, SEED = 2000, 200, 0
+    # (b) the serve tick, driven directly (1000 ticks: the smoke run stays
+    # well inside its time limit with phase 16 after this one)
+    T, T_CPU, SEED = 1000, 200, 0
     runs = [("serve_default", None), ("stream_sharded", None),
             ("chance_hard", {"policy.admission.kind": "uncertain_learnable"})]
     found = {}
@@ -1069,6 +1406,9 @@ def main():
     say("[stream] summary " + json.dumps(summ, sort_keys=True))
     for k in ("sustained_rate", "accuracy", "mean_tis", "cost"):
         check(math.isfinite(summ[k]) and summ[k] > 0, f"summary {k}={summ[k]}")
+    # phase 16 holds its traced run against this one
+    phase4 = dict(out={k: v.cpu() for k, v in _outputs(out).items()},
+                  secs=stream_s, kpt=None)
 
     # first 8 replications against the port on the CPU, same init+arrivals
     n8 = 8
@@ -1194,6 +1534,7 @@ def main():
         lambda: router.run_stream(cfg, Hp, n_reps=N, seed=SEED + 1,
                                   device="cuda"))
     if n_k:
+        phase4["kpt"] = round(n_k / Hp)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         say(f"[profile] stream {Hp} ticks: {n_k / Hp:.0f} kernels per tick, "
             f"device busy {busy / Hp:.0f} us per tick; wall per tick "
@@ -2708,6 +3049,11 @@ def main():
     torch.cuda.empty_cache()
     serve_phase(card)
 
+    # ---- phase 16: traces and traced sweeps -------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    estep9 = traced_sweeps_phase(card, phase4)
+
     # ds_estep: the public call at the stream's refresh shape (the task
     # route's warp mode), and the task kernel at the offline EM's C4 shape
     # (block mode, the table in shared memory); entropy_scores: the narrow
@@ -2722,6 +3068,14 @@ def main():
         "max_abs_err": errs["refresh"],
         "ms": t_main["ms"], "plain_ms": t_main["plain_ms"],
         "bound_ms": t_main["bound_ms"], "bound_by": t_main["bound_by"],
+        "library_ms": None}, {
+        "name": "ds_estep_votes_sweep", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ds_estep.cu",
+        "replaces": "src/repro/kernels/ds_estep.py:58",
+        "launches": estep9["launches"],
+        "max_abs_err": estep9["max_abs_err"],
+        "ms": estep9["ms"], "plain_ms": estep9["plain_ms"],
+        "bound_ms": estep9["bound_ms"], "bound_by": estep9["bound_by"],
         "library_ms": None}, {
         "name": "ds_estep_task", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ds_estep.cu",

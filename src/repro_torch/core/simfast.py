@@ -25,16 +25,24 @@ The hash is computed in int64 masked to 32 bits: torch has no usable
 into 16-bit halves so it stays exact in int64 without relying on signed
 overflow (which CUDA does not define).
 
-Not ported yet: the batch engine's ``trace`` counters, ``PopTraced`` /
-``SimScales`` sweeps (``simulate_swept``, ``simulate_swept_pop``) and the
-multi-device (pmap) path; :func:`_check_batch_config` raises for the
-trace counters and traced overrides.
+``FastConfig.trace`` adds per-batch trace counters (ticks, votes,
+finalizations, cumulative assignments and straggler duplications, churn,
+evictions, batch end times) that read state the engine already computes
+and draw nothing, so traced runs equal untraced ones on every shared
+output. :func:`simulate_swept` (:class:`SimScales` multipliers) and
+:func:`simulate_swept_pop` (:class:`PopTraced` absolute overrides of the
+population) run every sweep point x replication as rows of one batched
+run, each point drawn as its standalone :func:`simulate` draws it.
+
+Not ported: the multi-device (pmap) path (ROADMAP A13) and
+``make_learner_step`` (A8).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,9 +53,41 @@ from repro_torch.core.crowd import (
 from repro_torch.device import resolve_device
 from repro_torch.labelstream.aggregate import _add_at
 from repro_torch.learning import linear, select as lsel
+from repro_torch.obs import timing
+from repro_torch.obs.trace import TraceConfig
 
 INF = float("inf")
 MASK32 = 0xFFFFFFFF
+
+
+class SimScales(NamedTuple):
+    """Multipliers of the continuous pool rates for :func:`simulate_swept`:
+    worker speed (``median_mu``), session length (``session_mean_s``) and
+    recruitment delay (``recruit_mean_s`` and ``cold_recruit_mean_s``).
+    Leaves are numbers or share a leading sweep axis."""
+    mu: object = 1.0
+    session: object = 1.0
+    recruit: object = 1.0
+
+
+class PopTraced(NamedTuple):
+    """Absolute per-point overrides of the population for
+    :func:`simulate_swept_pop`: each leaf replaces the same-named
+    ``FastConfig`` field, ``0.0`` meaning "not overridden" (every real
+    value is positive). A point whose values equal the config's runs as
+    :func:`simulate` does, bit for bit."""
+    median_mu: object = 0.0
+    session_mean_s: object = 0.0
+    recruit_mean_s: object = 0.0
+    cold_recruit_mean_s: object = 0.0
+    acc_a: object = 0.0
+    acc_b: object = 0.0
+
+
+def _ov(traced, static):
+    """Absolute-override resolve: ``traced`` unless it is the 0 sentinel,
+    else the static config value."""
+    return traced if traced > 0 else static
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +124,8 @@ class FastConfig:
     max_batch_time: float = 3600.0
     latency_floor: float = 2.0
     bank: int = 16
-    # the batch engine's trace counters are not ported; must stay None
-    trace: Optional[object] = None
+    # per-batch trace counters (None: untraced)
+    trace: Optional[TraceConfig] = None
 
     @property
     def eff_batch(self) -> int:
@@ -123,9 +163,8 @@ def _draw_workers(cfg: FastConfig, rng: np.random.Generator, shape):
 def _init_workers(cfg: FastConfig, rng: np.random.Generator, lead=()):
     """Dense worker-pool state and banks as numpy arrays with leading dims
     ``lead``; column 0 of each bank seeds the initial pool, later columns
-    are the fresh workers consumed by churn/eviction backfill."""
-    if cfg.trace is not None:
-        raise NotImplementedError("FastConfig.trace is not yet ported")
+    are the fresh workers consumed by churn/eviction backfill. With a
+    trace, also the cumulative ``tr_assigned`` / ``tr_dups`` counters."""
     P = cfg.pool_size
     lead = tuple(lead)
     mu_b, sigma_b, acc_b = _draw_workers(cfg, rng, lead + (P, cfg.bank))
@@ -150,6 +189,11 @@ def _init_workers(cfg: FastConfig, rng: np.random.Generator, lead=()):
         cost_work=np.zeros(lead, np.float32),
         n_evicted=np.zeros(lead, np.int32), n_churned=np.zeros(lead, np.int32),
     )
+    if cfg.trace is not None:
+        # cumulative assignment / duplication counts, per replication like
+        # the cost accumulators, so slot churn never resets them
+        ws["tr_assigned"] = np.zeros(lead, np.int32)
+        ws["tr_dups"] = np.zeros(lead, np.int32)
     return ws, banks
 
 
@@ -333,22 +377,15 @@ def churn_and_maintain(cfg: FastConfig, ws, banks, t, u_delay, u_sess,
 _ALIVE_EVERY = 8
 
 
-def _check_batch_config(cfg: FastConfig, pop=None):
-    if cfg.trace is not None:
-        raise NotImplementedError("the batch engine's trace counters are "
-                                  "not ported yet (FastConfig.trace)")
-    if pop is not None:
-        raise NotImplementedError("traced population overrides (PopTraced, "
-                                  "simulate_swept*) are not ported yet")
-
-
-def _tick(cfg: FastConfig, ws, ts, banks, true_label, t0, t, seed, step: int):
+def _tick(cfg: FastConfig, ws, ts, banks, true_label, t0, t, seed, step: int,
+          pop: Optional[dict] = None):
     """Process all events at/before time ``t`` and make new assignments,
     for every replication at once: ``ws`` holds ``(R, P)`` worker state,
     ``ts`` ``(R, B[, C])`` task state, ``true_label`` ``(R, B)``, ``t0``,
     ``t`` and ``seed`` are ``(R,)``; ``step`` is the host tick index.
-    Returns ``(ws, ts, t_next)``, op for op the reference's float32
-    arithmetic."""
+    ``pop`` holds a sweep's per-row ``recruit`` and ``session`` means as
+    ``(R, 1)`` tensors (None: the config's). Returns ``(ws, ts,
+    t_next)``, op for op the reference's float32 arithmetic."""
     P, B, C = cfg.pool_size, cfg.eff_batch, cfg.n_classes
     R = t.shape[0]
     dev = t.device
@@ -409,7 +446,11 @@ def _tick(cfg: FastConfig, ws, ts, banks, true_label, t0, t, seed, step: int):
 
     # ---- churn + pool maintenance (single backfill update)
     rm = cfg.recruit_mean_s if cfg.retainer else cfg.cold_recruit_mean_s
-    ws, _ = churn_and_maintain(cfg, ws, banks, tc, up[:, 2], up[:, 3], rm)
+    sm = None
+    if pop is not None:
+        rm, sm = pop["recruit"], pop["session"]
+    ws, _ = churn_and_maintain(cfg, ws, banks, tc, up[:, 2], up[:, 3], rm,
+                               sm)
 
     # ---- assignment (priority routing + straggler duplication)
     avail = (ws["assigned"] < 0) & (ws["blocked_until"] <= tc) \
@@ -440,6 +481,10 @@ def _tick(cfg: FastConfig, ws, ts, banks, true_label, t0, t, seed, step: int):
     ws["busy_until"] = torch.where(take, start + lat_new, ws["busy_until"])
     ws["start_t"] = torch.where(take, start, ws["start_t"])
     ws["n_started"] = ws["n_started"] + take
+    if cfg.trace is not None:
+        # a take outside the unassigned tier is a straggler duplicate
+        ws["tr_assigned"] = ws["tr_assigned"] + take.sum(-1)
+        ws["tr_dups"] = ws["tr_dups"] + (take & ~took_unass).sum(-1)
 
     # ---- event jump: hop to the next completion/arrival/session end
     busy_min = ws["busy_until"].amin(-1)
@@ -459,12 +504,14 @@ def _tick(cfg: FastConfig, ws, ts, banks, true_label, t0, t, seed, step: int):
     return ws, ts, t_next
 
 
-def _run_batch(cfg: FastConfig, ws, banks, t0, seed, true_labels, valid):
+def _run_batch(cfg: FastConfig, ws, banks, t0, seed, true_labels, valid,
+               pop: Optional[dict] = None):
     """Label one batch to completion in every replication: the reference's
     event-jumping ``while_loop`` under ``vmap``. A replication whose
     condition (open tasks, step budget, time budget) is false keeps its
-    carry; the loop ends when none is left. Returns ``(ws, ts, t_end,
-    steps)`` with ``steps`` the ``(R,)`` tick counts."""
+    carry; the loop ends when none is left. ``pop`` as in :func:`_tick`.
+    Returns ``(ws, ts, t_end, steps)`` with ``steps`` the ``(R,)`` tick
+    counts."""
     R, B = t0.shape[0], cfg.eff_batch
     dev = t0.device
     ts = dict(
@@ -482,7 +529,7 @@ def _run_batch(cfg: FastConfig, ws, banks, t0, seed, true_labels, valid):
         if i % _ALIVE_EVERY == 0 and not bool(alive.any()):
             break
         ws_n, ts_n, t_n = _tick(cfg, ws, ts, banks, true_labels, t0, t,
-                                seed, i)
+                                seed, i, pop)
         a1 = alive[:, None]
         ws = {k: torch.where(alive if v.dim() == 1 else a1, v, ws[k])
               for k, v in ws_n.items()}
@@ -503,10 +550,20 @@ def _simulate_one(cfg: FastConfig, ws, banks, seed, true_labels, pop=None):
     """All replications of one labeling run: the batches in order, each
     labeled to completion by :func:`_run_batch`. ``ws``/``banks`` are the
     initial pool state on the device, ``seed`` the ``(R,)`` uint32 counter
-    seeds (int64), ``true_labels`` ``(n_tasks,)`` or ``(R, n_tasks)``.
-    Returns the reference's outputs with leading dim R, plus ``n_ticks``
-    ``(R, n_batches)``."""
-    _check_batch_config(cfg, pop)
+    seeds (int64), ``true_labels`` ``(n_tasks,)`` or ``(R, n_tasks)``,
+    ``pop`` a sweep's per-row means (see :func:`_tick`). Returns the
+    reference's outputs with leading dim R, plus ``n_ticks`` ``(R,
+    n_batches)``; with a trace also the per-batch ``trace_*`` counters
+    ``(R, n_batches)`` (``trace_assigned``, ``trace_dups``,
+    ``trace_churned`` and ``trace_evicted`` cumulative)."""
+    if cfg.trace is not None and not isinstance(cfg.trace, TraceConfig):
+        raise TypeError("FastConfig.trace must be None or a TraceConfig "
+                        "(repro_torch.obs.trace), got "
+                        f"{type(cfg.trace).__name__}")
+    if pop is not None and not isinstance(pop, dict):
+        raise TypeError("pop must be None or a dict of per-row 'recruit' "
+                        "and 'session' means (simulate_swept_pop builds "
+                        f"it), got {type(pop).__name__}")
     R = seed.shape[0]
     dev = seed.device
     B, T, nb = cfg.eff_batch, cfg.n_tasks, cfg.n_batches
@@ -525,16 +582,24 @@ def _simulate_one(cfg: FastConfig, ws, banks, seed, true_labels, pop=None):
         seed_b = _lowbias32(seed ^ mix)
         val = valid[i].expand(R, B)
         ws, ts, t_end, steps = _run_batch(cfg, ws, banks, t, seed_b,
-                                          labels[:, i], val)
+                                          labels[:, i], val, pop)
         fin = ts["done"] & val
         outs.append(dict(latency=torch.where(fin, ts["completed"] - t[:, None],
                                              0.0),
                          done=fin, result=ts["votes"].argmax(-1),
                          n_ticks=steps))
+        if cfg.trace is not None:
+            # the per-batch series; the counters are cumulative snapshots
+            # (the exporter diffs them)
+            outs[-1].update(
+                trace_ticks=steps, trace_votes=ts["votes"].sum((1, 2)),
+                trace_done=fin.sum(-1), trace_assigned=ws["tr_assigned"],
+                trace_dups=ws["tr_dups"], trace_churned=ws["n_churned"],
+                trace_evicted=ws["n_evicted"], trace_batch_end=t_end)
         t = t_end
     cat = lambda k: torch.cat([o[k] for o in outs], 1)
     done, result = cat("done"), cat("result")
-    return dict(
+    res = dict(
         latency=cat("latency")[:, :T],
         result=result[:, :T],
         done=done[:, :T],
@@ -550,6 +615,10 @@ def _simulate_one(cfg: FastConfig, ws, banks, seed, true_labels, pop=None):
         mean_pool_mu=ws["mu"].mean(-1),
         n_ticks=torch.stack([o["n_ticks"] for o in outs], 1),
     )
+    for k in outs[0]:
+        if k.startswith("trace_"):
+            res[k] = torch.stack([o[k] for o in outs], 1)
+    return res
 
 
 def _to_device(a, device):
@@ -612,6 +681,88 @@ def simulate(cfg: FastConfig, n_reps: int, *, seed: int = 0,
     labels = torch.as_tensor(np.asarray(true_labels).astype(np.int64),
                              device=dev)
     return _simulate_one(cfg, d["ws"], d["banks"], d["seed"], labels)
+
+
+def simulate_swept(cfg: FastConfig, n_reps: int, scales: SimScales, *,
+                   seed: int = 0, true_labels=None, shard: bool = True,
+                   device="cuda", draws=None):
+    """Sweep over the :class:`SimScales` multipliers as one batched run
+    (the ``scenarios.sweep`` backend for the batch engine's continuous
+    pool axes). Each multiplier is resolved against the config in float32,
+    as the reference's sweep multiplies, into the absolute values of
+    :func:`simulate_swept_pop`. Returns outputs with leading dims ``(V,
+    n_reps)``."""
+    f32 = lambda x: np.asarray(_np_leaf(x), np.float32)
+    mu, se, re = f32(scales.mu), f32(scales.session), f32(scales.recruit)
+    pop = PopTraced(
+        median_mu=np.float32(cfg.median_mu) * mu,
+        session_mean_s=np.float32(cfg.session_mean_s) * se,
+        recruit_mean_s=np.float32(cfg.recruit_mean_s) * re,
+        cold_recruit_mean_s=np.float32(cfg.cold_recruit_mean_s) * re)
+    return simulate_swept_pop(cfg, n_reps, pop, seed=seed,
+                              true_labels=true_labels, shard=shard,
+                              device=device, draws=draws)
+
+
+def _np_leaf(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else x
+
+
+def simulate_swept_pop(cfg: FastConfig, n_reps: int, pop: PopTraced, *,
+                       seed: int = 0, true_labels=None, shard: bool = True,
+                       timing_name: Optional[str] = None, device="cuda",
+                       draws=None):
+    """Sweep over a :class:`PopTraced` bundle as one batched run: the
+    leaves share a leading sweep axis ``(V,)`` (numbers broadcast); every
+    point x replication is a row of one :func:`_simulate_one`. Point i
+    draws its pools as ``simulate`` on the config with point i's values
+    does for ``seed``, and its rows run the tick with its recruitment and
+    session means, so it equals that run bit for bit. Values are read as
+    float64 on the host (the draws are host numpy). ``shard`` is accepted
+    for the reference's signature (one device); ``timing_name`` records
+    ``<timing_name>.execute`` in :mod:`repro_torch.obs.timing`. ``draws``
+    (a list of V dicts as :func:`draw_batch_init` returns; parity tests)
+    replaces each point's draws. Returns outputs with leading dims ``(V,
+    n_reps)``."""
+    dev = resolve_device(device)
+    t_start = time.perf_counter()
+    if true_labels is None:
+        true_labels = np.zeros(cfg.n_tasks, dtype=np.int64)
+    raw = [np.asarray(_np_leaf(leaf), np.float64) for leaf in pop]
+    V = max([a.shape[0] for a in raw if a.ndim > 0] or [1])
+    leaves = PopTraced(*[np.broadcast_to(a, (V,)) for a in raw])
+    if draws is not None and len(draws) != V:
+        raise ValueError(f"draws holds {len(draws)} points, expected {V}")
+    cfgs, dev_draws = [], []
+    for i in range(V):
+        point = {f: _ov(float(getattr(leaves, f)[i]), getattr(cfg, f))
+                 for f in PopTraced._fields}
+        cfgs.append(dataclasses.replace(cfg, **point))
+        d = draws[i] if draws is not None else draw_batch_init(
+            cfgs[-1], n_reps, np.random.default_rng(seed))
+        dev_draws.append(_draws_to_device(d, dev))
+    cat = lambda part: {k: torch.cat([d[part][k] for d in dev_draws])
+                        for k in dev_draws[0][part]}
+    per_row = lambda vals: torch.tensor(
+        vals, dtype=torch.float32, device=dev
+    ).repeat_interleave(n_reps)[:, None]
+    rows = dict(
+        recruit=per_row([c.recruit_mean_s if c.retainer
+                         else c.cold_recruit_mean_s for c in cfgs]),
+        session=per_row([c.session_mean_s for c in cfgs]))
+    labels = torch.as_tensor(np.asarray(true_labels).astype(np.int64),
+                             device=dev)
+    out = _simulate_one(cfg, cat("ws"), cat("banks"),
+                        torch.cat([d["seed"] for d in dev_draws]), labels,
+                        rows)
+    out = {k: v.reshape((V, n_reps) + tuple(v.shape[1:]))
+           for k, v in out.items()}
+    if timing_name is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        timing.record(f"{timing_name}.execute",
+                      time.perf_counter() - t_start)
+    return out
 
 
 # --------------------------------------------------------------------------

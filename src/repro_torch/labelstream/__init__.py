@@ -5,9 +5,11 @@ ring-buffer task window over sharded retainer pools (``router``), votes are
 aggregated by a batched full-confusion Dawid-Skene EM (``aggregate``, on
 the Hopper ``ds_estep`` kernel), and posterior-confidence adaptive
 redundancy (``policy``) stops requesting votes once a task's posterior is
-confident. ``serve_init`` / ``serve_tick`` step the same tick with injected
-arrivals for the live front end (``repro_torch.serving``). Exports resolve
-lazily, as in the reference package.
+confident. ``run_stream_sweep`` / ``run_stream_votes_sweep`` /
+``run_stream_grid`` run a sweep's points as rows of one batched run;
+``serve_init`` / ``serve_tick`` step the same tick with injected arrivals
+for the live front end (``repro_torch.serving``). Exports resolve lazily,
+as in the reference package.
 """
 import importlib
 
@@ -23,7 +25,11 @@ _EXPORTS = {
     "StreamConfig": "router",
     "StreamLearnerConfig": "router",
     "ShardingConfig": "router",
+    "StreamTraced": "router",
     "run_stream": "router",
+    "run_stream_sweep": "router",
+    "run_stream_votes_sweep": "router",
+    "run_stream_grid": "router",
     "stream_summary": "router",
     "serve_init": "router",
     "serve_tick": "router",

@@ -43,7 +43,9 @@ def init_arrival_state(cfg: ArrivalConfig, n_reps: int = 1,
 
 def rate_at(cfg: ArrivalConfig, state, t, rate=None):
     """Instantaneous offered rate (tasks/s) at time ``t`` (host float), one
-    value per replication. ``rate`` optionally replaces ``cfg.rate``."""
+    value per replication. ``rate`` (a number) optionally replaces
+    ``cfg.rate``: the poisson rate, mmpp calm rate or diurnal mean (the
+    mmpp burst rate stays)."""
     base = cfg.rate if rate is None else rate
     mode = state["mode"]
     if cfg.kind == "poisson":
@@ -64,14 +66,17 @@ def rate_at(cfg: ArrivalConfig, state, t, rate=None):
 
 
 def sample_arrivals(cfg: ArrivalConfig, state, gen: torch.Generator, t, dt,
-                    scale=1.0):
+                    scale=1.0, rate_abs=None):
     """Draw the number of arrivals in [t, t+dt) for every replication.
 
     Returns ``(n, state, rate)`` with ``n`` an int64 ``(n_reps,)`` tensor.
     The mmpp mode flips with probability ``1 - exp(-dt/dwell)`` per tick —
-    the discretized 2-state chain. Nothing here waits for the device.
+    the discretized 2-state chain. ``scale`` (a number, or one value per
+    replication) multiplies the offered rate; ``rate_abs`` (a number)
+    instead replaces the base rate (see :func:`rate_at`; exact for mmpp
+    too, whose burst rate stays). Nothing here waits for the device.
     """
-    rate = rate_at(cfg, state, t) * scale
+    rate = rate_at(cfg, state, t, rate_abs) * scale
     n = torch.poisson(torch.clamp(rate, min=0.0) * dt,
                       generator=gen).to(torch.int64)
     if cfg.kind == "mmpp":

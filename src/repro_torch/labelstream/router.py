@@ -41,14 +41,29 @@ the same tick one step at a time with injected per-shard arrival counts,
 each arrival carrying a request uid through the backlog (and a steal) into
 its window slot, for the live front end :mod:`repro_torch.serving.server`.
 
-Not yet ported (the config validator refuses them): LM task features,
-device sharding and trace buffers.
+``trace`` (a :class:`~repro_torch.obs.trace.TraceConfig`) adds the
+latency-source buffers: each window slot's admission instant, its staffed
+and unstaffed tick time and the instant of its last evidence, pooled at
+finalize into per-phase histograms and sums (backlog wait + window wait +
+work time = time in system), and per-tick activity series. Tracing reads
+state the tick already computes and draws nothing, so every shared output
+stays bit-identical.
+
+Sweeps (:func:`run_stream_sweep`, :func:`run_stream_votes_sweep`,
+:func:`run_stream_grid`) run every point x replication x shard as rows of
+one batched run: each point's initial state and arrivals are drawn as its
+standalone :func:`run_stream` draws them, and the tick takes per-row vote
+caps and difficulty mixtures, so each point equals its standalone run.
+
+Not yet ported (the config validator refuses them): LM task features
+(ROADMAP A12b) and device sharding (A13).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -75,6 +90,9 @@ from repro_torch.labelstream.routing import (
 )
 from repro_torch.learning import linear
 from repro_torch.learning.linear import ordered_matmul
+from repro_torch.obs import timing
+from repro_torch.obs.trace import PHASES as TRACE_PHASES
+from repro_torch.obs.trace import TraceConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,7 +182,8 @@ class StreamConfig:
     tis_bins: int = 512
     tis_bin_s: float = 4.0
     sharding: ShardingConfig = ShardingConfig()
-    trace: Optional[object] = None   # a TraceConfig in the reference; None
+    # latency-source trace buffers and per-tick series (None: untraced)
+    trace: Optional[TraceConfig] = None
 
     @property
     def fast(self) -> FastConfig:
@@ -180,6 +199,24 @@ class StreamConfig:
             min_obs=self.min_obs, z=self.z, alpha=self.alpha,
             latency_floor=self.latency_floor, bank=self.bank,
         )
+
+
+class StreamTraced(NamedTuple):
+    """Absolute per-point overrides of the static stream knobs: the grid
+    bundle of :func:`run_stream_grid`. Each leaf replaces the same-named
+    config value; ``0`` is "not overridden" for ``rate`` (``arrivals.rate``:
+    the poisson rate, mmpp calm rate or diurnal mean), ``votes_cap`` (a
+    masked cap: the vote buffers stay at the config's ``votes_cap``),
+    ``acc_a`` and ``acc_b`` (the workers' Beta accuracy prior), and any
+    NEGATIVE value for ``p_hard`` and ``hard_scale`` (0 is a valid
+    ``p_hard``). A point whose values equal the config runs as
+    :func:`run_stream` does, bit for bit."""
+    rate: object = 0.0
+    votes_cap: object = 0
+    acc_a: object = 0.0
+    acc_b: object = 0.0
+    p_hard: object = -1.0
+    hard_scale: object = -1.0
 
 
 # --------------------------------------------------------------------------
@@ -205,6 +242,12 @@ def _init_window(cfg: StreamConfig, B: int, device):
     if cfg.serve:
         # per-slot request uid (serve mode): -1 marks "no request here"
         win["uid"] = torch.full((B, Ws), -1, dtype=torch.int64, **z)
+    if cfg.trace is not None and cfg.trace.phases:
+        # per-slot phase accounting: admission instant, staffed ("work")
+        # and unstaffed ("wait") tick time, and the instant of the last
+        # posterior evidence (admission or credited vote)
+        for k in ("admit_t", "work_s", "wait_s", "last_evt_t"):
+            win[k] = torch.zeros((B, Ws), **z)
     return win
 
 
@@ -374,15 +417,24 @@ def _task_features(u1, u2, tl, diff, L: StreamLearnerConfig, C: int):
     return base + nrm
 
 
+def _mixture(cfg: StreamConfig, ov):
+    """The difficulty mixture ``(p_hard, hard_scale)``: the config's
+    numbers, or the (B, 1) per-row tensors of a sweep's overrides."""
+    if ov is None or ov.get("p_hard") is None:
+        return cfg.p_hard, cfg.hard_scale
+    return ov["p_hard"], ov["hard_scale"]
+
+
 def _admit_fifo(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
-                seed, uid_base=None):
+                seed, uid_base=None, ov=None):
     """FIFO ring push of this tick's arrivals and admission of the oldest
     into the free window slots; task identity (difficulty, label, features)
     is drawn at admission. In serve mode the arrivals carry the uids
-    ``uid_base + i`` through the backlog's uid ring. Returns ``(bl,
-    dropped, admit, arr_t, diff, tl, featw, uid_w)``; ``featw`` is None
-    without the learner, ``uid_w`` (the admitted uids) outside serve
-    mode."""
+    ``uid_base + i`` through the backlog's uid ring. ``ov`` holds a
+    sweep's per-row overrides (see :func:`_shard_tick`). Returns ``(bl,
+    dropped, admit, arr_t, diff, tl, featw, uid_w, adm)``; ``featw`` is
+    None without the learner, ``uid_w`` (the admitted uids) outside serve
+    mode, ``adm`` (the ranked admission's mean score) always None here."""
     Ws, C, Q, M = cfg.window, cfg.n_classes, cfg.backlog, \
         cfg.max_arrivals_per_tick
     L, B, dev = cfg.learner, seed.shape[0], seed.device
@@ -409,7 +461,8 @@ def _admit_fifo(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
         uid_w = torch.gather(bl_new["uid"], 1, src)
     # fresh-task draws at ADMISSION (difficulty mixture + label)
     uw = _uniform_block(seed ^ 0x33CC33CC, step, 2 * Ws).reshape(B, 2, Ws)
-    diff = torch.where(uw[:, 0] < cfg.p_hard, cfg.hard_scale, 1.0)
+    ph, hs = _mixture(cfg, ov)
+    diff = torch.where(uw[:, 0] < ph, hs, 1.0)
     tl = torch.clamp(torch.floor(uw[:, 1] * C).to(torch.int64), 0, C - 1)
     featw = None
     if L.enabled:
@@ -417,18 +470,20 @@ def _admit_fifo(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
         uf = _uniform_block(seed ^ 0x5EEDF00D, step, 2 * Ws * F
                             ).reshape(B, 2, Ws, F)
         featw = _task_features(uf[:, 0], uf[:, 1], tl, diff, L, C)
-    return bl_new, dropped, admit, arr_t, diff, tl, featw, uid_w
+    return bl_new, dropped, admit, arr_t, diff, tl, featw, uid_w, None
 
 
 def _admit_ranked(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
-                  seed, lp, uid_base=None):
+                  seed, lp, uid_base=None, ov=None):
     """Learner-driven admission: this tick's arrivals draw their identity
     (difficulty, label, features) now and take the free slots of the
     slot-array backlog (the i-th arrival the i-th free slot); queued tasks
     enter the window most uncertain first under the current model (times
     the learnability head's estimate under ``uncertain_learnable``), ties
     in slot order. Serve mode's uids take the arrivals' backlog slots.
-    Returns what :func:`_admit_fifo` does."""
+    Returns what :func:`_admit_fifo` does, ``adm`` being the mean
+    admission score of the tasks admitted (B,) when the trace records
+    per-tick series, else None."""
     C, Q, M = cfg.n_classes, cfg.backlog, cfg.max_arrivals_per_tick
     L, R, B, dev = cfg.learner, cfg.routing, seed.shape[0], seed.device
     F = L.n_features
@@ -444,7 +499,8 @@ def _admit_ranked(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
     dstw = torch.where(ok, dst, Q)                   # row Q is the dump row
     ua = _uniform_block(seed ^ 0x0BAD5EED, step, (2 + 2 * F) * M
                         ).reshape(B, 2 + 2 * F, M)
-    diff_a = torch.where(ua[:, 0] < cfg.p_hard, cfg.hard_scale, 1.0)
+    ph, hs = _mixture(cfg, ov)
+    diff_a = torch.where(ua[:, 0] < ph, hs, 1.0)
     tl_a = torch.clamp(torch.floor(ua[:, 1] * C).to(torch.int64), 0, C - 1)
     feat_a = _task_features(ua[:, 2:2 + F].transpose(1, 2),
                             ua[:, 2 + F:].transpose(1, 2), tl_a, diff_a, L, C)
@@ -482,23 +538,40 @@ def _admit_ranked(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
         bl_new["uid"] = bl["uid"].scatter(
             1, dstw, torch.where(ok, uid_base[:, None] + slot, -1))
         uid_w = torch.gather(bl_new["uid"], 1, src)
-    return bl_new, dropped, admit, arr_t, diff, tl, featw, uid_w
+    adm = None
+    if cfg.trace is not None and cfg.trace.per_tick:
+        # mean admission score of what this tick admitted (how uncertain
+        # the admitted tasks still are)
+        adm = (torch.where(admit_bl, adm_key, 0.0).sum(-1)
+               / torch.clamp(admit_bl.sum(-1), min=1))
+    return bl_new, dropped, admit, arr_t, diff, tl, featw, uid_w, adm
 
 
 def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
                 step: int, seed, warmup_t: float, lp: Optional[dict] = None,
-                uid_base=None):
+                uid_base=None, ov: Optional[dict] = None):
     """Advance every shard by one tick. ``n_arr`` (B,) are this tick's
     arrivals per shard, ``t`` the tick's time and ``step`` its index (host
     numbers), ``seed`` (B,) the counter seeds, ``lp`` the learner's
     parameters expanded to B (:func:`_learner_tick_params`; None without a
     learner), ``uid_base`` (B,) the first uid of each shard's arrivals in
-    serve mode. Returns ``(ws, win, bl, metrics, train)``; ``train`` holds
-    the finalized examples for the learner's ring (None without one); in
-    serve mode ``metrics`` also holds the per-slot ``srv_*`` outputs."""
+    serve mode. ``ov`` holds a sweep's per-row overrides as (B, 1) tensors:
+    ``cap``, the effective vote cap (the buffers stay at the config's
+    ``votes_cap``; the row's cap gates vote admission, finalization and the
+    outstanding target), and ``p_hard`` / ``hard_scale``, the difficulty
+    mixture. Returns ``(ws, win, bl, metrics, train)``; ``train`` holds the
+    finalized examples for the learner's ring (None without one); in serve
+    mode ``metrics`` also holds the per-slot ``srv_*`` outputs, and with a
+    trace the phase histograms and sums (``ph`` (B, 4, tis_bins) / ``ps``
+    (B, 4), the phases in ``TRACE_PHASES`` order) and the per-tick
+    series."""
     P, Ws, C = cfg.pool_size, cfg.window, cfg.n_classes
     cap = cfg.policy.votes_cap
+    cap_eff = None if ov is None else ov.get("cap")
+    cap_t = cap if cap_eff is None else cap_eff
     pol, fast, L, R = cfg.policy, cfg.fast, cfg.learner, cfg.routing
+    tr = cfg.trace
+    tr_ph = tr is not None and tr.phases
     dev = seed.device
     B = seed.shape[0]
     up = _uniform_block(seed, step, 8 * P).reshape(B, 8, P)
@@ -512,11 +585,13 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
         gate = torch.ones((B,), dtype=torch.bool, device=dev)
     frank = torch.cumsum(free.to(torch.int64), -1) - 1
     if R.admission != "fifo":
-        bl, dropped, admit, arr_t, diff, tl, featw, uid_w = _admit_ranked(
-            cfg, bl, n_arr, free, frank, gate, t, step, seed, lp, uid_base)
+        bl, dropped, admit, arr_t, diff, tl, featw, uid_w, adm = \
+            _admit_ranked(cfg, bl, n_arr, free, frank, gate, t, step, seed,
+                          lp, uid_base, ov)
     else:
-        bl, dropped, admit, arr_t, diff, tl, featw, uid_w = _admit_fifo(
-            cfg, bl, n_arr, free, frank, gate, t, step, seed, uid_base)
+        bl, dropped, admit, arr_t, diff, tl, featw, uid_w, adm = \
+            _admit_fifo(cfg, bl, n_arr, free, frank, gate, t, step, seed,
+                        uid_base, ov)
     bl_count = bl["count"]
     win = dict(win)
     win["active"] = win["active"] | admit
@@ -529,6 +604,11 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
         win["feat"] = torch.where(admit[..., None], featw, win["feat"])
     if cfg.serve:
         win["uid"] = torch.where(admit, uid_w, win["uid"])
+    if tr_ph:
+        win["admit_t"] = torch.where(admit, t, win["admit_t"])
+        win["work_s"] = torch.where(admit, 0.0, win["work_s"])
+        win["wait_s"] = torch.where(admit, 0.0, win["wait_s"])
+        win["last_evt_t"] = torch.where(admit, t, win["last_evt_t"])
 
     # ---- completions -> votes -> online posterior -----------------------
     ws = dict(ws)
@@ -551,7 +631,7 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     prior_ct = ((tid[:, None, :] == tid[:, :, None]) & comp[:, None, :]
                 & (pr[None, :] < pr[:, None])).sum(-1)
     vpos = torch.gather(win["n_votes"], 1, a_idx) + prior_ct
-    keep = comp & (vpos < cap)
+    keep = comp & (vpos < cap_t)
     tid_k = torch.where(keep, tid, Ws)
     vpos_k = torch.clamp(torch.where(keep, vpos, 0), 0, cap - 1)
     lin = tid_k * cap + vpos_k                  # kept (task, slot) are unique
@@ -573,6 +653,15 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
                              ).reshape(B, Ws + 1, C)[:, :Ws]
     win["n_votes"] = win["n_votes"] + _count_rows(
         Ws + 1, torch.where(keep, tid_k, Ws))[:, :Ws]
+    if tr_ph:
+        # the completion instant of this tick's credited votes (busy_until
+        # still holds it; it is reset below): the finalize lag counts from
+        # the last evidence the posterior saw. A max is exact in any order
+        evt = torch.cat([win["last_evt_t"],
+                         torch.zeros((B, 1), device=dev)], 1)
+        win["last_evt_t"] = evt.scatter_reduce(
+            1, tid_k, torch.where(keep, ws["busy_until"], -INF), "amax"
+        )[:, :Ws]
 
     # ---- periodic offline full-confusion Dawid-Skene refresh ------------
     # every refresh_every ticks, re-run the exact batched EM on the
@@ -606,7 +695,7 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
         fused = win["logpost"]
 
     # ---- finalization (adaptive redundancy) -----------------------------
-    fin, conf = should_finalize(fused, win["n_votes"], pol)
+    fin, conf = should_finalize(fused, win["n_votes"], pol, cap=cap_eff)
     if L.enabled:
         fin = fin | known_fin
     fin = fin & win["active"]
@@ -621,6 +710,22 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     corr_d = (wfin & (result == win["true_label"])).sum(-1)
     tis_d = (tis * wfin).sum(-1)
     votesfin_d = (win["n_votes"] * wfin).sum(-1)
+    if tr_ph:
+        # the latency-source decomposition at finalize, the phases in
+        # TRACE_PHASES order: backlog wait + window wait + work time is the
+        # time in system (the tick accounting below); the finalize lag
+        # overlaps the tail. All four bin into one (B, 4, nbin) histogram
+        ph_vals = torch.stack([win["admit_t"] - win["arrival_t"],
+                               win["wait_s"], win["work_s"],
+                               torch.clamp(t - win["last_evt_t"], min=0.0)],
+                              1)
+        pb = torch.clamp((ph_vals / cfg.tis_bin_s).to(torch.int64), 0,
+                         nbin - 1)
+        pb = torch.where(wfin[:, None], pb, nbin) + (nbin + 1) \
+            * torch.arange(4, device=dev)[:, None]
+        ph_hist = _count_rows(4 * (nbin + 1), pb.reshape(B, -1)
+                              ).reshape(B, 4, nbin + 1)[..., :nbin]
+        ph_sum = (ph_vals * wfin[:, None]).sum(-1)
     # credit voters of finalized tasks by agreement with the final label
     # (incremental hard-EM M-step for the online accuracy estimates)
     vmask = (torch.arange(cap, device=dev)[None, None, :]
@@ -676,7 +781,7 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
         & (ws["session_end"] > t)
     n_asg = _count_rows(Ws + 1, torch.where(ws["assigned"] >= 0,
                                             ws["assigned"], Ws))[:, :Ws]
-    want = target_outstanding(win["n_votes"], pol)
+    want = target_outstanding(win["n_votes"], pol, cap=cap_eff)
     if L.enabled:
         # a model-known task requests only the crowd votes it still needs
         # to clear the min_votes_known floor
@@ -720,6 +825,17 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     waiting = avail & ~take
     ws["cost_wait"] = ws["cost_wait"] \
         + waiting.sum(-1) * cfg.dt * WAIT_PAY_PER_S
+    if tr_ph:
+        # this tick is work time for every still-active task staffed after
+        # the matching, window wait for the others; a task admitted at tick
+        # k and finalized at tick k + m collects exactly m ticks, so the
+        # three phases sum to its time in system
+        n_asg_post = _count_rows(Ws + 1, torch.where(
+            ws["assigned"] >= 0, ws["assigned"], Ws))[:, :Ws]
+        staffed = win["active"] & (n_asg_post > 0)
+        win["work_s"] = win["work_s"] + torch.where(staffed, cfg.dt, 0.0)
+        win["wait_s"] = win["wait_s"] + torch.where(
+            win["active"] & ~staffed, cfg.dt, 0.0)
 
     metrics = dict(
         hist=hist_d, done=done_d, correct=corr_d, sum_tis=tis_d,
@@ -736,6 +852,14 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
         # answers, vote counts, posterior confidence and time in system
         metrics.update(srv_fin=fin, srv_uid=win["uid"], srv_label=result,
                        srv_votes=win["n_votes"], srv_conf=conf, srv_tis=tis)
+    if tr_ph:
+        metrics.update(ph=ph_hist, ps=ph_sum)
+    if tr is not None and tr.per_tick:
+        metrics.update(votes=keep.sum(-1),
+                       busy_workers=(ws["assigned"] >= 0).sum(-1),
+                       idle_workers=waiting.sum(-1))
+        if adm is not None:
+            metrics["adm_score"] = adm
     train = None
     if L.enabled:
         # finalized (features, label) pairs for the learner's ring. The
@@ -902,15 +1026,16 @@ def _learner_push_fit(cfg: StreamConfig, ls, train, step: int):
 
 
 def _tick_arrivals(cfg: StreamConfig, arr_state, gen, t: float,
-                   rate_scale: float):
+                   rate_scale: float, rate_abs=None):
     """One tick's arrivals for every replication: the total ``n_new``
     (n_reps,) and its per-shard split ``n_arr`` (n_reps, n_shards), each
     arrival assigned a uniform shard, the total capped at
-    ``max_arrivals_per_tick * n_shards`` (the excess counts as dropped)."""
+    ``max_arrivals_per_tick * n_shards`` (the excess counts as dropped).
+    ``rate_abs`` replaces ``arrivals.rate`` (see ``sample_arrivals``)."""
     S = cfg.n_shards
     cap_total = cfg.max_arrivals_per_tick * S
     n_new, arr_state, _ = sample_arrivals(cfg.arrivals, arr_state, gen, t,
-                                          cfg.dt, rate_scale)
+                                          cfg.dt, rate_scale, rate_abs)
     dev = n_new.device
     n_cap = torch.clamp(n_new, max=cap_total)
     sid = torch.randint(0, S, (n_new.shape[0], cap_total), generator=gen,
@@ -922,11 +1047,13 @@ def _tick_arrivals(cfg: StreamConfig, arr_state, gen, t: float,
 
 
 def draw_arrivals(cfg: StreamConfig, horizon: int, n_reps: int, *,
-                  seed: int = 0, rate_scale: float = 1.0, device="cuda"):
+                  seed: int = 0, rate_scale: float = 1.0, rate_abs=None,
+                  device="cuda"):
     """The arrivals :func:`run_stream` draws for ``seed``, as the
     ``(n_new (horizon, n_reps), n_arr (horizon, n_reps, n_shards))`` pair
     its ``arrivals`` argument takes: the tick draws nothing else from the
-    run's generator."""
+    run's generator. ``rate_abs`` (a number) draws them as if
+    ``arrivals.rate`` were ``rate_abs``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -935,17 +1062,23 @@ def draw_arrivals(cfg: StreamConfig, horizon: int, n_reps: int, *,
     news, arrs = [], []
     for _ in range(horizon):
         n_new, n_arr, state = _tick_arrivals(cfg, state, gen, float(t),
-                                             rate_scale)
+                                             rate_scale, rate_abs)
         news.append(n_new)
         arrs.append(n_arr)
         t = np.float32(t + np.float32(cfg.dt))
     return torch.stack(news), torch.stack(arrs)
 
 
-def draw_init(cfg: StreamConfig, n_reps: int, seed: int = 0):
+def draw_init(cfg: StreamConfig, n_reps: int, seed: int = 0, *,
+              acc_a: Optional[float] = None, acc_b: Optional[float] = None):
     """The initial state :func:`run_stream` draws for ``seed``, as the
     numpy ``(ws, banks, seeds)`` that :func:`state_from_numpy` takes, with
-    leading dims ``(n_reps, n_shards)``."""
+    leading dims ``(n_reps, n_shards)``. ``acc_a`` / ``acc_b`` (numbers)
+    draw the workers' accuracies as if the config's Beta prior had them."""
+    if acc_a is not None or acc_b is not None:
+        cfg = dataclasses.replace(
+            cfg, acc_a=cfg.acc_a if acc_a is None else acc_a,
+            acc_b=cfg.acc_b if acc_b is None else acc_b)
     rng = np.random.default_rng(seed)
     ws, banks = _init_shard(cfg, rng, (n_reps, cfg.n_shards))
     seeds = rng.integers(0, 2 ** 32, (n_reps, cfg.n_shards), dtype=np.uint64)
@@ -955,15 +1088,20 @@ def draw_init(cfg: StreamConfig, n_reps: int, seed: int = 0):
 
 _ACCUM = ("hist", "done", "correct", "sum_tis", "votes_fin", "completions",
           "done_all", "dropped", "model_known")
+# the trace's integer per-tick series, in the order the tick stacks them
+# (``adm_score``, a float, joins them under ranked admission)
+_TRACE_SERIES = ("votes", "busy_workers", "idle_workers", "dropped",
+                 "stolen", "donated")
 
 
 def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
              rate_scale: float, gen: Optional[torch.Generator],
-             arrivals=None):
+             arrivals=None, ov: Optional[dict] = None):
     """All replications of one run in lock-step: a loop of ``horizon``
     ticks over ``state`` (see :func:`state_from_numpy`). Arrivals are drawn
     from ``gen`` or taken from ``arrivals = (n_new (H, n_reps), n_arr (H,
-    n_reps, n_shards))``. Returns ``(out, state)``; ``out`` holds tensors
+    n_reps, n_shards))``; ``ov`` holds a sweep's per-row overrides (see
+    :func:`_shard_tick`). Returns ``(out, state)``; ``out`` holds tensors
     on the state's device, reduced over shards as in the reference."""
     S, M = cfg.n_shards, cfg.max_arrivals_per_tick
     cap_total = M * S
@@ -974,14 +1112,26 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
     ws, banks, win, bl = state["ws"], state["banks"], state["win"], state["bl"]
     ls = state["learner"]
     steal = cfg.sharding.steal != "none"
+    tr = cfg.trace
+    tr_ph = tr is not None and tr.phases
+    tr_pt = tr is not None and tr.per_tick
     zi = lambda *s: torch.zeros(s, dtype=torch.int64, device=dev)
     acc = {k: zi(B) for k in _ACCUM if k != "hist"}
     acc["hist"] = zi(B, cfg.tis_bins)
     acc["sum_tis"] = torch.zeros((B,), device=dev)
+    if tr_ph:
+        acc["ph"] = zi(B, len(TRACE_PHASES), cfg.tis_bins)
+        acc["ps"] = torch.zeros((B, len(TRACE_PHASES)), device=dev)
     stolen, donated = zi(B), zi(B)
     over, arrived, arrived_warm = zi(N), zi(N), zi(N)
     series = {k: zi(N, horizon)
               for k in ("arrivals", "finalized", "backlog", "in_flight")}
+    if tr_pt:
+        # the trace's per-tick series: one (N, horizon, 6) buffer written
+        # once a tick and split at the end
+        tser = zi(N, horizon, len(_TRACE_SERIES))
+        adm = torch.zeros((N, horizon), device=dev) \
+            if cfg.routing.admission != "fifo" else None
     arr_state = init_arrival_state(cfg.arrivals, N, dev)
     if arrivals is not None:
         inj_new, inj_arr = (
@@ -1006,14 +1156,16 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
         n_arr = torch.clamp(n_arr, max=M).reshape(B)
         ws, win, bl, m, train = _shard_tick(
             cfg, ws, banks, win, bl, n_arr, tf, step, seeds, warmup_t,
-            _learner_tick_params(cfg, ls))
+            _learner_tick_params(cfg, ls), ov=ov)
         if steal:
             bl, got, gave = _steal_rebalance(cfg, bl)
             stolen = stolen + got
             donated = donated + gave
+        elif tr_pt:
+            got = gave = torch.zeros_like(m["dropped"])
         if ls is not None:
             ls = _learner_push_fit(cfg, ls, train, step)
-        for k in _ACCUM:
+        for k in acc:
             acc[k] = acc[k] + m[k]
         arrived = arrived + n_new
         if tf >= warmup_t:
@@ -1022,6 +1174,13 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
         series["finalized"][:, step] = m["done_all"].reshape(N, S).sum(-1)
         series["backlog"][:, step] = m["backlog"].reshape(N, S).sum(-1)
         series["in_flight"][:, step] = m["in_flight"].reshape(N, S).sum(-1)
+        if tr_pt:
+            # per-tick activity, summed over each replication's shards
+            tser[:, step] = torch.stack(
+                [m["votes"], m["busy_workers"], m["idle_workers"],
+                 m["dropped"], got, gave], -1).reshape(N, S, -1).sum(1)
+            if adm is not None:
+                adm[:, step] = m["adm_score"].reshape(N, S).sum(-1) / S
         t = np.float32(t + np.float32(cfg.dt))
     local = dict(acc)
     local["cost_wait"] = ws["cost_wait"]
@@ -1032,6 +1191,16 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
     local["in_flight_end"] = win["active"].sum(-1)
     local["stolen"], local["donated"] = stolen, donated
     out = {k: v.reshape((N, S) + v.shape[1:]).sum(1) for k, v in local.items()}
+    if tr_ph:
+        ph, ps = out.pop("ph"), out.pop("ps")
+        for i, pk in enumerate(TRACE_PHASES):
+            out["ph_" + pk] = ph[:, i].contiguous()
+            out["ps_" + pk] = ps[:, i].contiguous()
+    if tr_pt:
+        for i, k in enumerate(_TRACE_SERIES):
+            series[k] = tser[..., i].contiguous()
+        if adm is not None:
+            series["adm_score"] = adm
     out["dropped"] = out["dropped"] + over
     out["arrived"] = arrived
     out["arrived_warm"] = arrived_warm
@@ -1098,11 +1267,15 @@ def _validate_stream_config(cfg: StreamConfig):
     if sh.n_devices < 1 or cfg.n_shards % sh.n_devices:
         raise ValueError(f"sharding.n_devices={sh.n_devices} must be >= 1 "
                          f"and divide n_shards={cfg.n_shards}")
+    if cfg.trace is not None and not isinstance(cfg.trace, TraceConfig):
+        raise TypeError("StreamConfig.trace must be None or a TraceConfig "
+                        "(repro_torch.obs.trace), got "
+                        f"{type(cfg.trace).__name__}")
     unported = [
         (L.enabled and L.feature_kind == "lm",
-         "learner.feature_kind='lm' (LM task features)"),
-        (cfg.trace is not None, "trace"),
-        (sh.n_devices > 1, f"sharding.n_devices={sh.n_devices}"),
+         "learner.feature_kind='lm' (LM task features, ROADMAP A12b)"),
+        (sh.n_devices > 1,
+         f"sharding.n_devices={sh.n_devices} (ROADMAP A13)"),
     ]
     for on, what in unported:
         if on:
@@ -1149,6 +1322,203 @@ def run_stream(cfg: StreamConfig, horizon: int, *, n_reps: int = 1,
     return out
 
 
+def _as_stream_config(cfg) -> StreamConfig:
+    """The sweeps accept a StreamConfig or, as in the reference, a
+    declarative ScenarioSpec (lowered through ``to_stream_config``)."""
+    if isinstance(cfg, StreamConfig):
+        return cfg
+    from repro_torch.scenarios.compile import to_stream_config
+    return to_stream_config(cfg)
+
+
+def _run_points(cfg: StreamConfig, horizon: int, points: list, *,
+                n_reps: int, seed: int, warmup_frac: float, device,
+                timing_name: Optional[str] = None, draws=None):
+    """The batched run behind the sweeps: every point x replication x shard
+    is a row of one :func:`_run_one`. ``points`` holds one dict per point:
+    ``rate_scale`` and ``rate_abs`` (the arrivals), ``acc_a`` / ``acc_b``
+    (the workers' draw; None keeps the config's), and ``cap``, ``p_hard``,
+    ``hard_scale`` (the tick's per-row overrides; None keeps the
+    config's). Each point's initial state and arrivals are drawn as its
+    standalone :func:`run_stream` draws them for ``seed`` (the arrivals from
+    a generator of their own, ahead of the loop), so each point's rows run
+    as that run does. ``draws`` (for parity tests) gives each point's
+    ``(init, arrivals)`` instead: ``init`` the numpy ``(ws, banks, seeds)``
+    of :func:`draw_init`, ``arrivals`` the ``(n_new, n_arr)`` of
+    :func:`draw_arrivals`. ``timing_name`` records the call's wall time as
+    ``<timing_name>.execute`` in :mod:`repro_torch.obs.timing`. Returns
+    the outputs with leading dims ``(V, n_reps)``."""
+    dev = resolve_device(device)
+    V, S = len(points), cfg.n_shards
+    t_start = time.perf_counter()
+    if draws is not None and len(draws) != V:
+        raise ValueError(f"draws holds {len(draws)} points, expected {V}")
+    inits, arrivals = {}, {}
+    parts, news, arrs = [], [], []
+    for i, p in enumerate(points):
+        ik = (p.get("acc_a"), p.get("acc_b"))
+        ak = (p.get("rate_scale", 1.0), p.get("rate_abs"))
+        if draws is not None:
+            parts.append(draws[i][0])
+            n_new, n_arr = (torch.as_tensor(np.asarray(a, np.int64),
+                                            device=dev) for a in draws[i][1])
+        else:
+            if ik not in inits:
+                inits[ik] = draw_init(cfg, n_reps, seed, acc_a=ik[0],
+                                      acc_b=ik[1])
+            parts.append(inits[ik])
+            if ak not in arrivals:
+                arrivals[ak] = draw_arrivals(
+                    cfg, horizon, n_reps, seed=seed, rate_scale=ak[0],
+                    rate_abs=ak[1], device=dev)
+            n_new, n_arr = arrivals[ak]
+        news.append(n_new)
+        arrs.append(n_arr)
+    cat = lambda i: {k: np.concatenate([pt[i][k] for pt in parts])
+                     for k in parts[0][i]}
+    init = state_from_numpy(cfg, cat(0), cat(1),
+                            np.concatenate([pt[2] for pt in parts]), dev)
+    rows = n_reps * S
+
+    def per_row(key, default, dtype):
+        # one (B, 1) tensor for the whole run, built once before the loop;
+        # None where no point overrides ``key``
+        vals = [p.get(key) for p in points]
+        if all(v is None for v in vals):
+            return None
+        vals = [default if v is None else v for v in vals]
+        return torch.tensor(vals, dtype=dtype, device=dev
+                            ).repeat_interleave(rows)[:, None]
+    ov = dict(cap=per_row("cap", cfg.policy.votes_cap, torch.int64))
+    if any(p.get("p_hard") is not None for p in points):
+        ov["p_hard"] = per_row("p_hard", cfg.p_hard, torch.float32)
+        ov["hard_scale"] = per_row("hard_scale", cfg.hard_scale,
+                                   torch.float32)
+    warmup_t = float(warmup_frac * horizon * cfg.dt)
+    out, _ = _run_one(cfg, int(horizon), init, float(np.float32(warmup_t)),
+                      1.0, None, (torch.cat(news, 1), torch.cat(arrs, 1)),
+                      ov=ov)
+    out = _split_points(out, V)
+    if timing_name is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        timing.record(f"{timing_name}.execute",
+                      time.perf_counter() - t_start)
+    out["warmup_t"] = warmup_t
+    out["measured_s"] = horizon * cfg.dt - warmup_t
+    return out
+
+
+def _split_points(out, V: int):
+    """Outputs with a leading ``V * n_reps`` dim as ``(V, n_reps, ...)``."""
+    if isinstance(out, dict):
+        return {k: _split_points(v, V) for k, v in out.items()}
+    return out.reshape((V, -1) + tuple(out.shape[1:]))
+
+
+def run_stream_sweep(cfg, horizon: int, rate_scales, *, n_reps: int = 1,
+                     seed: int = 0, warmup_frac: float = 0.3,
+                     shard: bool = True, device="cuda", draws=None):
+    """Load sweep as one batched run: every offered-rate scale x
+    replication x shard is a row of one tick loop (the
+    ``scenarios.sweep`` backend for the stream engine's arrival-rate
+    axis). Point i equals ``run_stream(cfg, horizon, n_reps=n_reps,
+    seed=seed, rate_scale=rate_scales[i])``. ``shard`` is accepted for the
+    reference's signature: on one device there is nothing to split.
+    ``draws`` replaces each point's draws (see ``_run_points``). Returns
+    outputs with leading dims ``(len(rate_scales), n_reps)``."""
+    cfg = _as_stream_config(cfg)
+    _validate_stream_config(cfg)
+    points = [dict(rate_scale=float(s)) for s in rate_scales]
+    return _run_points(cfg, horizon, points, n_reps=n_reps, seed=seed,
+                       warmup_frac=warmup_frac, device=device, draws=draws)
+
+
+def run_stream_votes_sweep(cfg, horizon: int, votes_caps, *, n_reps: int = 1,
+                           seed: int = 0, warmup_frac: float = 0.3,
+                           rate_scale: float = 1.0, device="cuda",
+                           draws=None):
+    """Votes-cap sweep as one batched run with MASKED caps: the vote
+    buffers are sized at ``max(votes_caps)`` and each row's effective cap
+    gates vote admission, finalization and the outstanding-vote target.
+    Columns past a row's cap are never written or read, so point i equals
+    ``run_stream`` with ``policy.votes_cap = votes_caps[i]`` bit for bit.
+    ``draws`` replaces each point's draws (see ``_run_points``). Returns
+    outputs with leading dims ``(len(votes_caps), n_reps)``."""
+    cfg = _as_stream_config(cfg)
+    caps = [int(v) for v in votes_caps]
+    if not caps:
+        raise ValueError("votes_caps must be non-empty")
+    for v in caps:
+        if v < max(1, cfg.policy.min_votes):
+            raise ValueError(
+                f"votes_cap sweep value {v} must be >= max(1, "
+                f"policy.min_votes={cfg.policy.min_votes})")
+    cfg = dataclasses.replace(
+        cfg, policy=dataclasses.replace(cfg.policy, votes_cap=max(caps)))
+    _validate_stream_config(cfg)
+    points = [dict(rate_scale=float(rate_scale), cap=c) for c in caps]
+    return _run_points(cfg, horizon, points, n_reps=n_reps, seed=seed,
+                       warmup_frac=warmup_frac, device=device, draws=draws)
+
+
+def run_stream_grid(cfg, horizon: int, traced: StreamTraced, *,
+                    n_reps: int = 1, seed: int = 0,
+                    warmup_frac: float = 0.3, shard: bool = True,
+                    timing_name: Optional[str] = None, device="cuda",
+                    draws=None):
+    """Multi-axis grid over a :class:`StreamTraced` bundle as one batched
+    run. The leaves share a leading cell axis ``(V,)`` (scalars broadcast);
+    each cell runs the service with its absolute overrides of the arrival
+    rate, the votes cap (masked, the buffers at the config's
+    ``votes_cap``), the Beta accuracy prior and the difficulty mixture, and
+    equals ``run_stream`` on the config with those values. Values are read
+    as float64 on the host (the draws are host numpy), so a Python float
+    reproduces the standalone run at that value. ``shard`` is accepted for
+    the reference's signature (one device); ``timing_name`` records
+    ``<timing_name>.execute`` in :mod:`repro_torch.obs.timing`; ``draws``
+    replaces each cell's draws (see ``_run_points``). Returns outputs with
+    leading dims ``(V, n_reps)``."""
+    cfg = _as_stream_config(cfg)
+    if cfg.sharding.n_devices > 1:
+        raise ValueError(
+            "run_stream_grid batches grid cells across devices and cannot "
+            "also shard_map single runs; use sharding.n_devices=1 (run "
+            "device-sharded scenarios per-cell via run_stream)")
+    _validate_stream_config(cfg)
+    raw = {f: np.asarray(_np(getattr(traced, f)),
+                         np.int64 if f == "votes_cap" else np.float64)
+           for f in StreamTraced._fields}
+    lo = max(1, cfg.policy.min_votes)
+    for v in np.atleast_1d(raw["votes_cap"]):
+        if v != 0 and not lo <= int(v) <= cfg.policy.votes_cap:
+            raise ValueError(
+                f"grid votes_cap value {int(v)} must be 0 (unset) or in "
+                f"[max(1, policy.min_votes)={lo}, "
+                f"policy.votes_cap={cfg.policy.votes_cap}]")
+    for v in np.atleast_1d(raw["p_hard"]):
+        if v > 1.0:
+            raise ValueError(
+                f"grid p_hard value {float(v)} must be negative (unset) "
+                "or in [0, 1]")
+    V = max([a.shape[0] for a in raw.values() if a.ndim > 0] or [1])
+    lv = {f: np.broadcast_to(a, (V,)) for f, a in raw.items()}
+    points = []
+    for i in range(V):
+        pos = lambda f, d: float(lv[f][i]) if lv[f][i] > 0 else d
+        nonneg = lambda f, d: float(lv[f][i]) if lv[f][i] >= 0 else d
+        points.append(dict(
+            rate_abs=pos("rate", None),
+            cap=int(lv["votes_cap"][i]) if lv["votes_cap"][i] > 0
+            else cfg.policy.votes_cap,
+            acc_a=pos("acc_a", None), acc_b=pos("acc_b", None),
+            p_hard=nonneg("p_hard", cfg.p_hard),
+            hard_scale=nonneg("hard_scale", cfg.hard_scale)))
+    return _run_points(cfg, horizon, points, n_reps=n_reps, seed=seed,
+                       warmup_frac=warmup_frac, device=device,
+                       timing_name=timing_name, draws=draws)
+
+
 def _hist_percentile(hist, q, bin_s):
     """Right-edge percentile from the pooled time-in-system histogram.
 
@@ -1174,7 +1544,8 @@ def _np(x):
 def stream_summary(cfg: StreamConfig, out) -> dict:
     """Reduce :func:`run_stream` output to the service-level quantities:
     offered vs sustained steady-state rate, p50/p95/p99 time-in-system,
-    label accuracy, votes per finalized task, drops, cost."""
+    label accuracy, votes per finalized task, drops, cost; with trace
+    phases also ``phases``, each phase's mean, p50, p95 and saturation."""
     reps = int(_np(out["done"]).shape[0])
     dur = float(out["measured_s"]) * reps
     hist = _np(out["hist"]).sum(0)
@@ -1186,7 +1557,7 @@ def stream_summary(cfg: StreamConfig, out) -> dict:
     pipe_cap = 2.0 * cfg.n_shards * cfg.window * reps
     holdover = min(float(_np(out["in_flight_end"]).sum()
                          + _np(out["backlog_end"]).sum()), pipe_cap)
-    return dict(
+    s = dict(
         n_reps=reps,
         offered_rate=offered / max(dur, 1e-9),
         sustained_rate=done / max(dur, 1e-9),
@@ -1208,6 +1579,20 @@ def stream_summary(cfg: StreamConfig, out) -> dict:
         / reps,
         hist_saturated=bool(hist.size and hist[-1] > 0),
     )
+    if "ph_backlog_wait" in out:
+        # the latency-source breakdown (trace phases): where time in
+        # system goes
+        phases = {}
+        for pk in TRACE_PHASES:
+            ph = _np(out["ph_" + pk])
+            ph = ph.reshape(-1, ph.shape[-1]).sum(0)
+            phases[pk] = dict(
+                mean=float(_np(out["ps_" + pk]).sum()) / max(done, 1.0),
+                p50=_hist_percentile(ph, 50, cfg.tis_bin_s),
+                p95=_hist_percentile(ph, 95, cfg.tis_bin_s),
+                hist_saturated=bool(ph.size and ph[-1] > 0))
+        s["phases"] = phases
+    return s
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,26 @@
-"""repro_torch.obs: observability of the port. Only the wall-clock registry
-(``timing``) is ported; the in-loop trace buffers, export and report of
-``src/repro/obs`` are ROADMAP A5e."""
-from repro_torch.obs import timing
+"""repro_torch.obs: in-loop trace buffers, latency-source decomposition and
+a run-report layer over the port's batched engines (port of
+``src/repro/obs``).
 
-__all__ = ["timing"]
+The pieces:
+
+  * ``trace``  — :class:`TraceConfig`, the trace switch the stream tick and
+    the batch engine read, and :class:`EventsTrace`, the event loop's
+    host-side recorder (unused until the event loop is ported, ROADMAP
+    A9);
+  * ``timing`` — process-wide wall-clock registry (first call vs later
+    calls per named call site);
+  * ``export`` — versioned JSON-lines trace artifacts, the reference's
+    schema (``python -m repro_torch.obs.export <scenario>``);
+  * ``report`` — text dashboard over any trace artifact
+    (``python -m repro_torch.obs.report TRACE_<scenario>.jsonl``).
+
+This ``__init__`` exports only the engine-facing pieces (``trace`` /
+``timing``, both import-light): ``export`` imports the scenario layer
+inside functions, so the engines can import ``repro_torch.obs.trace``
+without a cycle.
+"""
+from repro_torch.obs import timing
+from repro_torch.obs.trace import EventsTrace, TraceConfig
+
+__all__ = ["EventsTrace", "TraceConfig", "timing"]

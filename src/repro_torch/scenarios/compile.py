@@ -10,7 +10,7 @@ Compilation is exact: every registry scenario lowers to the config the
 reference's compiler gives, field for field. A spec that demands a policy
 an engine cannot express raises ``ValueError`` naming the field, as in the
 reference. Not ported: the event-loop engine's ``to_cs_config`` (ROADMAP
-A9) and enabled traces (A5e); both raise ``NotImplementedError``.
+A9), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,12 +43,13 @@ def _reject(engine: str, field: str, why: str):
 
 
 def _trace_config(spec: ScenarioSpec):
-    """``None`` (traces off). Enabled traces are not ported yet."""
-    if spec.trace.enabled:
-        raise NotImplementedError(
-            "trace.enabled: the engines' trace buffers are not ported yet "
-            "(ROADMAP A5e)")
-    return None
+    """Lower ``spec.trace`` to the engines' TraceConfig (None = off, the
+    untraced program)."""
+    if not spec.trace.enabled:
+        return None
+    from repro_torch.obs.trace import TraceConfig
+    return TraceConfig(phases=spec.trace.phases,
+                       per_tick=spec.trace.per_tick)
 
 
 def _check_batch_engine(spec: ScenarioSpec, engine: str):

@@ -13,13 +13,17 @@ point with it (:func:`~repro_torch.labelstream.router.run_stream` +
 ``summarize``), so a run equals that call bit for bit. Every entry point
 runs on the card unless the caller passes ``device="cpu"``.
 
-``sweep`` runs one ``run`` per value of an axis, as the reference does for
-every axis it does not trace. The axes the reference traces into one
-vectorized program (the stream engine's offered rate, votes cap and
-``StreamTraced`` axes; the batch engine's ``SimScales`` / ``PopTraced``
-pool axes) raise ``NotImplementedError`` until those programs are ported
-(ROADMAP A5f, A8): the reference's vectorized points equal per-value runs
-only at scale 1.0, so looping instead would return other numbers.
+With ``trace.enabled`` on the spec, ``run`` also attaches the trace
+artifact's lines (``repro_torch.obs.export.trace_doc``) as ``out["trace"]``.
+
+``sweep`` runs a scenario across one axis. The axes the reference traces
+into one vectorized program run as one batched run here: the stream
+engine's offered rate (``run_stream_sweep``; mmpp rate sweeps excepted),
+votes cap (``run_stream_votes_sweep``) and the ``StreamTraced`` axes
+(``run_stream_grid``: the Beta accuracy prior and the difficulty mixture),
+and the batch engine's ``SimScales`` pool axes (``simulate_swept``) and
+Beta accuracy prior (``simulate_swept_pop``). Every other axis runs one
+``run`` per value, as in the reference.
 
 The event-loop engine is not ported (ROADMAP A9): ``engine="events"``
 raises ``NotImplementedError``.
@@ -27,6 +31,8 @@ raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 from repro_torch.scenarios.compile import (
     engines, to_fast_config, to_stream_config,
@@ -36,18 +42,25 @@ from repro_torch.scenarios.registry import (
 )
 from repro_torch.scenarios.spec import ScenarioSpec, override
 
-#: simfast axes the reference sweeps through ``SimScales``
-_SIMFAST_AXES = ("pool.median_mu", "pool.session_mean_s",
-                 "pool.recruit_mean_s")
-#: the stream axis the reference sweeps through the traced rate scale
+#: axis name -> SimScales field for the batched simfast sweep
+_SIMFAST_AXES = {
+    "pool.median_mu": "mu",
+    "pool.session_mean_s": "session",
+    "pool.recruit_mean_s": "recruit",
+}
+#: stream axes that map onto the rate scale
 _STREAM_AXES = ("arrivals.rate",)
-#: the stream axis the reference sweeps through the masked votes cap
+#: stream axis that maps onto the masked votes cap
 _STREAM_VOTES_AXIS = "policy.redundancy.votes"
 #: Beta accuracy-prior axes (simfast ``PopTraced``)
 _ACC_AXES = ("pool.acc_a", "pool.acc_b")
-#: stream axes of the reference's ``StreamTraced`` bundle
-_STREAM_TRACED_AXES = ("pool.acc_a", "pool.acc_b", "difficulty.p_hard",
-                       "difficulty.hard_scale")
+#: stream axes of the ``StreamTraced`` grid bundle
+_STREAM_TRACED_AXES = {
+    "pool.acc_a": "acc_a",
+    "pool.acc_b": "acc_b",
+    "difficulty.p_hard": "p_hard",
+    "difficulty.hard_scale": "hard_scale",
+}
 
 
 def _resolve_engine(spec: ScenarioSpec, engine):
@@ -68,6 +81,16 @@ def _resolve_engine(spec: ScenarioSpec, engine):
     return engine
 
 
+def _attach_trace(out: dict, scenario: ScenarioSpec) -> dict:
+    """With ``scenario.trace.enabled``, build the trace artifact's lines
+    (``repro_torch.obs.export.trace_doc``) from the engine's output and
+    attach them as ``out["trace"]``, ready for ``write_trace``."""
+    if scenario.trace.enabled:
+        from repro_torch.obs.export import trace_doc
+        out["trace"] = trace_doc(out)
+    return out
+
+
 def run(scenario, engine: str = None, *, seed: int = 0, n_reps: int = 1,
         horizon: int = None, rate_scale: float = 1.0,
         warmup_frac: float = 0.3, true_labels=None, device="cuda") -> dict:
@@ -77,7 +100,8 @@ def run(scenario, engine: str = None, *, seed: int = 0, n_reps: int = 1,
 
     Returns ``{"engine", "scenario", "config", "metrics", "raw"}``:
     ``config`` is the lowered engine config, ``metrics`` the engine's
-    summary dict and ``raw`` the engine's output tensors. Engine knobs:
+    summary dict and ``raw`` the engine's output tensors; with
+    ``trace.enabled``, ``trace`` the trace artifact's lines. Engine knobs:
     ``horizon`` / ``rate_scale`` / ``warmup_frac`` (stream; ``horizon``
     defaults to the spec's), ``true_labels`` (simfast).
     """
@@ -94,7 +118,7 @@ def run(scenario, engine: str = None, *, seed: int = 0, n_reps: int = 1,
                          warmup_frac=warmup_frac, rate_scale=rate_scale,
                          device=device)
         out.update(config=cfg, metrics=stream_summary(cfg, raw), raw=raw)
-        return out
+        return _attach_trace(out, scenario)
     from repro_torch.core.simfast import simulate
     from repro_torch.core.simfast_stats import summarize
     cfg = to_fast_config(scenario)
@@ -102,47 +126,128 @@ def run(scenario, engine: str = None, *, seed: int = 0, n_reps: int = 1,
                    device=device)
     out.update(config=cfg, metrics=dataclasses.asdict(summarize(raw)),
                raw=raw)
-    return out
+    return _attach_trace(out, scenario)
 
 
-def _vectorized_in_reference(spec: ScenarioSpec, engine: str, axis: str):
-    """The ROADMAP item that ports the reference's vectorized sweep of
-    ``axis`` on ``engine``, or None where the reference runs per value."""
-    if engine == "stream":
-        if axis in _STREAM_AXES and spec.arrivals.kind != "mmpp":
-            return "A5f"
-        if axis == _STREAM_VOTES_AXIS:
-            return "A5f"
-        if axis in _STREAM_TRACED_AXES and spec.sharding.n_devices == 1:
-            return "A5f"
-    if engine == "simfast":
-        if axis in _ACC_AXES:
-            return "A8"
-        # a Base-NR pool's recruit axis is swept per value in the reference
-        if axis in _SIMFAST_AXES and not (axis == "pool.recruit_mean_s"
-                                          and not spec.pool.retainer):
-            return "A8"
-    return None
+def _slice_point(raw, i):
+    """Point ``i`` of a sweep's ``(V, n_reps, ...)`` outputs."""
+    if isinstance(raw, dict):
+        return {k: v if k in ("warmup_t", "measured_s")
+                else _slice_point(v, i) for k, v in raw.items()}
+    return raw[i]
+
+
+def _vectorized(axis, values, engine, raw, summary):
+    return dict(axis=axis, values=values, engine=engine, vectorized=True,
+                results=[summary(_slice_point(raw, i))
+                         for i in range(len(values))], raw=raw)
 
 
 def sweep(scenario, axis: str, values, engine: str = None, *, seed: int = 0,
           n_reps: int = 1, horizon: int = None, warmup_frac: float = 0.3,
           true_labels=None, device="cuda") -> dict:
-    """Run ``scenario`` at each value of one axis, one :func:`run` per
-    value (``axis`` is a dotted spec path). Returns ``{"axis", "values",
-    "engine", "vectorized", "results"}`` with ``results[i]`` the metrics
-    dict at ``values[i]`` and ``vectorized=False``. An axis the reference
-    sweeps in one vectorized program raises ``NotImplementedError``."""
+    """Run ``scenario`` at each value of one axis (``axis`` is a dotted
+    spec path). The axes the reference vectorizes run as one batched run
+    (``vectorized=True``, with the stacked outputs as ``raw``): the stream
+    engine's ``arrivals.rate`` (not for mmpp, whose burst rate must not
+    scale), ``policy.redundancy.votes`` and the ``StreamTraced`` axes (one
+    device), and the batch engine's ``SimScales`` pool axes (the recruit
+    axis only on a retainer pool) and Beta accuracy prior. Anything else
+    runs one :func:`run` per value (``vectorized=False``). Returns
+    ``{"axis", "values", "engine", "vectorized", "results"}`` with
+    ``results[i]`` the metrics dict at ``values[i]``."""
     if not isinstance(scenario, ScenarioSpec):
         raise TypeError("sweep() takes a ScenarioSpec, got "
                         f"{type(scenario).__name__}")
     engine = _resolve_engine(scenario, engine)
     values = list(values)
-    item = _vectorized_in_reference(scenario, engine, axis)
-    if item is not None:
-        raise NotImplementedError(
-            f"sweep over {axis!r} on engine {engine!r} is vectorized in the "
-            f"reference and not ported yet (ROADMAP {item})")
+    H = horizon if horizon is not None else scenario.horizon
+    kw = dict(n_reps=n_reps, seed=seed, device=device)
+
+    # the rate scale multiplies the WHOLE offered process: that equals
+    # overriding arrivals.rate for poisson and diurnal, but mmpp's burst
+    # rate is absolute, so mmpp rate sweeps run per value
+    if engine == "stream" and axis in _STREAM_AXES \
+            and scenario.arrivals.kind != "mmpp":
+        from repro_torch.labelstream.router import (
+            run_stream_sweep, stream_summary,
+        )
+        cfg = to_stream_config(scenario)
+        scales = [v / scenario.arrivals.rate for v in values]
+        raw = run_stream_sweep(cfg, H, scales, warmup_frac=warmup_frac, **kw)
+        return _vectorized(axis, values, engine, raw,
+                           lambda o: stream_summary(cfg, o))
+
+    # masked caps: each value still goes through override() first so the
+    # spec rejects exactly what a per-value run would reject
+    if engine == "stream" and axis == _STREAM_VOTES_AXIS:
+        from repro_torch.labelstream.router import (
+            run_stream_votes_sweep, stream_summary,
+        )
+        for v in values:
+            override(scenario, {axis: v})
+        cfg = to_stream_config(scenario)
+        raw = run_stream_votes_sweep(cfg, H, values, warmup_frac=warmup_frac,
+                                     **kw)
+        return _vectorized(axis, values, engine, raw,
+                           lambda o: stream_summary(cfg, o))
+
+    # the Beta accuracy prior and the difficulty mixture through the
+    # StreamTraced grid bundle (device-sharded specs run per value)
+    if engine == "stream" and axis in _STREAM_TRACED_AXES \
+            and scenario.sharding.n_devices == 1:
+        from repro_torch.labelstream.router import (
+            StreamTraced, run_stream_grid, stream_summary,
+        )
+        for v in values:
+            override(scenario, {axis: v})
+        cfg = to_stream_config(scenario)
+        V = len(values)
+        tr = StreamTraced(
+            rate=np.full((V,), cfg.arrivals.rate),
+            votes_cap=np.full((V,), cfg.policy.votes_cap, np.int64),
+            acc_a=np.full((V,), cfg.acc_a), acc_b=np.full((V,), cfg.acc_b),
+            p_hard=np.full((V,), cfg.p_hard),
+            hard_scale=np.full((V,), cfg.hard_scale),
+        )._replace(**{_STREAM_TRACED_AXES[axis]:
+                      np.asarray(values, np.float64)})
+        raw = run_stream_grid(cfg, H, tr, warmup_frac=warmup_frac, **kw)
+        return _vectorized(axis, values, engine, raw,
+                           lambda o: stream_summary(cfg, o))
+
+    if engine == "simfast" and axis in _ACC_AXES:
+        from repro_torch.core.simfast import PopTraced, simulate_swept_pop
+        from repro_torch.core.simfast_stats import summarize
+        for v in values:
+            override(scenario, {axis: v})
+        cfg = to_fast_config(scenario)
+        pop = PopTraced()._replace(**{axis.split(".")[1]:
+                                      np.asarray(values, np.float64)})
+        raw = simulate_swept_pop(cfg, n_reps, pop, seed=seed,
+                                 true_labels=true_labels, device=device)
+        return _vectorized(axis, values, engine, raw,
+                           lambda o: dataclasses.asdict(summarize(o)))
+
+    # SimScales.recruit multiplies whichever recruitment mean the engine
+    # uses; on a Base-NR (cold) pool that is cold_recruit_mean_s, not the
+    # axis's recruit_mean_s, so Base-NR recruit sweeps run per value
+    if engine == "simfast" and axis in _SIMFAST_AXES \
+            and not (axis == "pool.recruit_mean_s"
+                     and not scenario.pool.retainer):
+        from repro_torch.core.simfast import SimScales, simulate_swept
+        from repro_torch.core.simfast_stats import summarize
+        cfg = to_fast_config(scenario)
+        base = {"pool.median_mu": scenario.pool.median_mu,
+                "pool.session_mean_s": scenario.pool.session_mean_s,
+                "pool.recruit_mean_s": scenario.pool.recruit_mean_s}[axis]
+        scales = SimScales()._replace(**{
+            _SIMFAST_AXES[axis]: np.asarray([v / base for v in values],
+                                            np.float32)})
+        raw = simulate_swept(cfg, n_reps, scales, seed=seed,
+                             true_labels=true_labels, device=device)
+        return _vectorized(axis, values, engine, raw,
+                           lambda o: dataclasses.asdict(summarize(o)))
+
     results = []
     for v in values:
         res = run(override(scenario, {axis: v}), engine, seed=seed,

@@ -240,12 +240,12 @@ class ShardingSpec:
 
 @dataclasses.dataclass(frozen=True)
 class TraceSpec:
-    """In-loop observability: lowered to the engines' ``TraceConfig`` in
-    the reference (the port's traces are ROADMAP A5e). Disabled (the default) compiles the exact pre-trace
-    program on every engine; enabled, the trace buffers record only
-    deterministic functions of existing state and consume no extra
-    randomness, so all shared outputs stay bit-identical either way
-    (tests/test_obs.py pins both properties).
+    """In-loop observability, lowered to the engines' ``TraceConfig``
+    (:mod:`repro_torch.obs.trace`). Disabled (the default) runs the
+    untraced program on every engine; enabled, the trace buffers record
+    only deterministic functions of existing state and draw nothing, so
+    all shared outputs stay bit-identical either way
+    (``tests/test_torch_trace.py``).
 
     ``phases``   — per-phase latency decomposition of time-in-system
     (backlog wait, window wait, work time, finalize lag);

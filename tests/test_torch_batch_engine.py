@@ -122,11 +122,20 @@ def test_simulate_floats_match(sim_pair):
 
 
 def test_simulate_rejects_unported_options():
+    """The trace counters and the per-row population overrides run (see
+    tests/test_torch_trace.py and tests/test_torch_sweep.py); what the
+    engine cannot take raises ``TypeError``: the reference's TraceConfig
+    in place of the port's, and a population override that is not the
+    per-row dict ``simulate_swept_pop`` builds."""
+    from repro_torch.obs.trace import TraceConfig as PortTrace
     cfg = get_fast_config("smallR1")
-    with pytest.raises(NotImplementedError):
+    traced = ts.simulate(dataclasses.replace(cfg, trace=PortTrace()), 2,
+                         device="cpu")
+    assert traced["trace_ticks"].shape == (2, cfg.n_batches)
+    with pytest.raises(TypeError):
         ts.simulate(dataclasses.replace(cfg, trace=TraceConfig()), 2,
                     device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         ts._simulate_one(cfg, {}, {}, torch.zeros(2, dtype=torch.int64),
                          np.zeros(cfg.n_tasks), pop=object())
 

@@ -250,10 +250,25 @@ def test_name_keyed_helpers_are_registry_lowerings():
 
 
 def test_trace_and_events_raise_naming_their_item():
+    """Traces lower to the port's TraceConfig on both batched engines; what
+    is still not ported (the event loop, LM stream features, device
+    sharding) raises ``NotImplementedError`` naming its ROADMAP item."""
+    from repro_torch.obs.trace import TraceConfig
     traced = T.override(T.get_scenario("stream_default"),
                         {"trace.enabled": True})
-    with pytest.raises(NotImplementedError, match="A5e"):
-        T.to_stream_config(traced)
+    assert T.to_stream_config(traced).trace == TraceConfig()
+    assert T.to_fast_config(T.get_scenario(
+        "smallR1", {"trace.enabled": True, "trace.phases": False})).trace \
+        == TraceConfig(phases=False)
+    assert dataclasses.asdict(T.to_stream_config(traced)) == \
+        dataclasses.asdict(J.to_stream_config(J.override(
+            J.get_scenario("stream_default"), {"trace.enabled": True})))
+    with pytest.raises(NotImplementedError, match="A12b"):
+        T.run(T.get_scenario("lm_stream"), horizon=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):
+        T.run(T.override(T.get_scenario("stream_sharded"),
+                         {"sharding.n_devices": 2}), horizon=2,
+              device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         T.run(T.get_scenario("smallR1"), "events", device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
@@ -325,6 +340,13 @@ def test_sweep_per_value_equals_runs():
                    device="cpu")["vectorized"] is False
 
 
+# the axes the reference sweeps in one vectorized program, with the ROADMAP
+# item that ported them, and two values of each
+SWEEP_VALUES = {"arrivals.rate": [0.02, 0.1], "policy.redundancy.votes": [1, 3],
+                "pool.acc_a": [2.0, 18.0], "difficulty.p_hard": [0.0, 0.5],
+                "pool.median_mu": [75.0, 300.0], "pool.acc_b": [1.0, 4.0]}
+
+
 @pytest.mark.parametrize("name,axis,item", [
     ("stream_default", "arrivals.rate", "A5f"),
     ("stream_default", "policy.redundancy.votes", "A5f"),
@@ -334,8 +356,27 @@ def test_sweep_per_value_equals_runs():
     ("smallR1", "pool.acc_b", "A8"),
 ])
 def test_sweep_vectorized_axes_raise(name, axis, item):
-    with pytest.raises(NotImplementedError, match=item):
-        T.sweep(T.get_scenario(name), axis, [1.0, 2.0], device="cpu")
+    """These axes no longer raise: ``sweep`` runs them as one batched run
+    (``vectorized=True``, the stacked outputs in ``raw``), each point's
+    metrics those of its own slice; where the axis is an absolute value
+    (all but the rate and SimScales axes, which the reference reaches
+    through float32 multipliers) they equal a per-value ``run``."""
+    assert item in ("A5f", "A8")
+    spec = T.get_scenario(name)
+    if name == "smallR1":
+        spec = T.override(spec, {"n_tasks": 8})
+    values = SWEEP_VALUES[axis]
+    kw = dict(n_reps=2, seed=1, device="cpu")
+    if name != "smallR1":
+        kw["horizon"] = 30
+    sw = T.sweep(spec, axis, values, **kw)
+    assert sw["vectorized"] is True and sw["axis"] == axis
+    assert tuple(sw["raw"]["done"].shape[:2]) == (2, 2)
+    assert len(sw["results"]) == 2
+    if axis not in ("arrivals.rate", "pool.median_mu"):
+        assert sw["results"] == [
+            T.run(T.override(spec, {axis: v}), **kw)["metrics"]
+            for v in values]
 
 
 def test_run_learning_takes_a_spec():

@@ -190,9 +190,17 @@ def test_init_workers_shapes_and_ranges():
     assert (banks["acc"] >= 0.55).all() and (banks["acc"] <= 0.995).all()
     assert (banks["mu"] >= 15.0).all()
     np.testing.assert_array_equal(ws["mu"], banks["mu"][..., 0])
-    with pytest.raises(NotImplementedError):
-        ts._init_workers(ts.FastConfig(trace=object()),
-                         np.random.default_rng(0))
+    # a trace adds the cumulative counters, as the reference's does
+    from repro.obs.trace import TraceConfig as JTrace
+    from repro_torch.obs.trace import TraceConfig
+    ws_t, _ = ts._init_workers(ts.FastConfig(trace=TraceConfig()),
+                               np.random.default_rng(0), (3,))
+    ref_t, _ = js._init_workers(js.FastConfig(trace=JTrace()),
+                                jax.random.key(0))
+    assert set(ws_t) == set(ref_t) == set(ref_ws) | {"tr_assigned",
+                                                     "tr_dups"}
+    for k in ("tr_assigned", "tr_dups"):
+        assert ws_t[k].shape == (3,) and not ws_t[k].any()
 
 
 # ---- labelstream policy and arrivals (the tick's other primitives) -------

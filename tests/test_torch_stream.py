@@ -162,7 +162,7 @@ def test_stream_matches_reference_with_injected_draws(name, overrides):
 @pytest.mark.parametrize("change,err", [
     (dict(learner=StreamLearnerConfig(enabled=True, feature_kind="lm")),
      NotImplementedError),
-    (dict(trace=object()), NotImplementedError),
+    (dict(trace=object()), TypeError),
     (dict(sharding=ShardingConfig(n_devices=2)), NotImplementedError),
     (dict(serve=True), ValueError),
     (dict(routing=RoutingConfig(admission="uncertain")), ValueError),
