@@ -91,15 +91,14 @@ drives the port's main path on the card:
      on the sequential route and back; a reduced model
      on the card against the CPU; a crash, restore and continue at reduced
      size equal to a straight run;
- 14. the learner-aware stream tick at phase 4's scale (1440 ticks x 256
-     replications): (a) ``skewed_learner_fused`` (the learner fused into
-     the posterior, uncertainty-first routing) with the EM refresh, (b)
+ 14. the learner-aware stream tick at 256 replications: (a)
+     ``skewed_learner_fused`` (the learner fused into the posterior,
+     uncertainty-first routing) with the EM refresh for 480 ticks, (b)
      ``chance_hard`` (scored routing) with ``uncertain_learnable``
      admission (the learnability head), (c) ``stream_sharded`` (8 shards,
-     pressure stealing) for 240 ticks and (d) the same at 20x its rate for
-     240 ticks, where shards do steal ((b) at 480 ticks); each twice,
-     bit for bit in every integer
-     output, conservation exact, (a)'s 216 E-steps on the task route,
+     pressure stealing) and (d) the same at 20x its rate, where shards do
+     steal, each for 240 ticks; each twice, bit for bit in every integer
+     output, conservation exact, (a)'s 72 E-steps on the task route,
      ``model_known > 0`` with the learner, as much stolen as donated, and
      the first 8 replications equal to a CPU run of the port on the same
      initial state and arrivals (else the first differing tick and state
@@ -108,7 +107,7 @@ drives the port's main path on the card:
  15. the scenario front door and the live serve path: (a) the registry
      smoke (``repro_torch.scenarios.smoke``) on the card, every (scenario,
      ported engine) pair, the pairs not ported yet listed as ``[TODO]``;
-     (b) ``serve_tick`` driven directly for 1000 ticks on
+     (b) ``serve_tick`` driven directly for 300 ticks on
      ``serve_default``, ``stream_sharded`` and ``chance_hard`` with
      ``uncertain_learnable`` admission, injections steering each shard's
      backlog near its capacity: each twice, bit for bit, conservation
@@ -129,13 +128,28 @@ drives the port's main path on the card:
      (b) ``run_stream_sweep`` over rates 0.5x-4x and (c)
      ``run_stream_votes_sweep`` over caps 3 / 5 / 7 / 9 with the refresh
      (its E-step 9 votes wide, held against the plain version at that
-     shape and timed), each 64 replications x 480 ticks, and (d)
+     shape and timed), each 64 replications x 240 ticks, and (d)
      ``scenarios.sweep`` over ``pool.acc_a`` and ``difficulty.p_hard`` at
-     240 ticks: each sweep one batched run, every point's integer outputs
+     120 ticks: each sweep one batched run, every point's integer outputs
      equal to its standalone run's (floats within 1e-6 relative), the
      batched run's time against the per-value runs'; (e) ``smallR1``
      traced equal to untraced, and the batch engine's ``pool.median_mu``
-     and ``pool.acc_b`` sweeps equal to their standalone runs.
+     and ``pool.acc_b`` sweeps equal to their standalone runs;
+ 17. the LM stream at full width: (a) the embedding bank of ``lm_stream``
+     through xlstm-125m at its published widths (12 layers, d_model 768,
+     4 heads of 192, vocab 50304; random weights from the seed) at
+     ``EmbedSpec``'s own sizes (48 tokens, 512 entries, micro-batches of
+     64), built twice, bit for bit, one micro-batch against the port's
+     forward on the CPU on the same parameters (the tests' jitted bound),
+     s, kernels and device idle share per micro-batch; (b) ``lm_stream``
+     and ``lm_chance_hard`` on that model through ``scenarios.run`` for
+     480 ticks x 256 replications, each twice, bit for bit in every
+     integer output, and a 4 x 120 run equal to the port on the CPU on the
+     same bank, initial state and arrivals; ticks per second and kernels
+     per tick; (c) live text over HTTP: 8 clients x 32 text submissions to
+     ``lm_stream`` at full width, a quarter with a known label, every one
+     answered; answered tasks per second, p50 / p95 wall latency and the
+     ``embed_texts`` time per tick.
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -145,6 +159,11 @@ With ``--launch-times SRC`` it only prints the per-call times of
 ``ds_estep`` at the refresh shape and of ``entropy_scores`` at the learning
 shapes through the package under SRC (another commit's ``src`` unpacked
 beside this one, say), to compare two launch paths in turns in one run.
+With ``--phase17`` it runs only the registry smoke and phase 17 (no kernel
+build: the LM stream launches none); with ``--lm-depth`` only the
+full-width xlstm-125m forward on the card against the CPU, group by group,
+in bfloat16 and float32, beside the forward's own response to a one-ulp
+move of its input (how far bfloat16 rounding alone carries with depth).
 """
 from __future__ import annotations
 
@@ -440,15 +459,16 @@ def stream_learner_phase(card: str):
     H, N, SEED, n8 = 1440, 256, 0, 8
     refresh = {"refresh_every": 40, "refresh_iters": 6}
     runs = [
-        ("a", "skewed_learner_fused with the refresh",
-         get_stream_config("skewed_learner_fused", refresh), H),
-        # (b) runs a third of the horizon and (c), (d) a sixth, to keep
-        # the smoke run well inside its time limit with phases 15-16 after
+        # (a) runs a third of phase 4's horizon and (b)-(d) a sixth, to keep
+        # the smoke run well inside its time limit with phases 15-17 after
         # them
+        ("a", f"skewed_learner_fused with the refresh, horizon cut to "
+         f"{H // 3} ticks",
+         get_stream_config("skewed_learner_fused", refresh), H // 3),
         ("b", "chance_hard with uncertain_learnable admission, horizon cut "
-         f"to {H // 3} ticks",
+         f"to {H // 6} ticks",
          get_stream_config("chance_hard", {"routing": RoutingConfig(
-             enabled=True, admission="uncertain_learnable")}), H // 3),
+             enabled=True, admission="uncertain_learnable")}), H // 6),
         ("c", "stream_sharded (8 shards, pressure stealing), horizon cut "
          f"to {H // 6} ticks",
          get_stream_config("stream_sharded"), H // 6),
@@ -709,7 +729,7 @@ def traced_sweeps_phase(card: str, phase4: dict) -> dict:
     del res, out, flat
     # what observing costs, in turns in this call (untraced, traced,
     # traced, untraced): phase 4's and (a)'s ticks/s come minutes apart
-    Ht, rates = 240, {"untraced": [], "traced": []}
+    Ht, rates = 120, {"untraced": [], "traced": []}
     plain_cfg = dataclasses.replace(cfg, trace=None)
     for which in ("untraced", "traced", "traced", "untraced"):
         one = cfg if which == "traced" else plain_cfg
@@ -726,7 +746,7 @@ def traced_sweeps_phase(card: str, phase4: dict) -> dict:
         f"of the ticks/s; {card}")
     base4 = scen.get_scenario("skewed_adaptive5", refresh)
     cfg4 = scen.to_stream_config(base4)
-    Hs, Ns = 480, 64
+    Hs, Ns = 240, 64
 
     # (b) the rate sweep against the four per-value runs
     scales = [0.5, 1.0, 2.0, 4.0]
@@ -957,9 +977,9 @@ def serve_phase(card: str):
     say(f"[serve a] registry smoke on the card passed in "
         f"{time.perf_counter() - t0:.1f} s; {card}")
 
-    # (b) the serve tick, driven directly (1000 ticks: the smoke run stays
-    # well inside its time limit with phase 16 after this one)
-    T, T_CPU, SEED = 1000, 200, 0
+    # (b) the serve tick, driven directly (300 ticks: the smoke run stays
+    # well inside its time limit with phases 16-17 after it)
+    T, T_CPU, SEED = 300, 200, 0
     runs = [("serve_default", None), ("stream_sharded", None),
             ("chance_hard", {"policy.admission.kind": "uncertain_learnable"})]
     found = {}
@@ -1091,7 +1111,7 @@ def serve_phase(card: str):
                if st == 200 and r["status"] == "done")
     check(done == n and stats["answered"] == n and stats["conservation"],
           f"[serve c] {done}/{n} answered, stats {stats}")
-    (row,) = stats["timing"]
+    row = next(r for r in stats["timing"] if r["name"] == "serve.tick")
     http = dict(tasks_per_s=n / wall, p50_s=stats["p50_latency_s"],
                 p95_s=stats["p95_latency_s"], ticks=stats["ticks"],
                 cold_s=row["cold_s"], warm_s=row["warm_s"], wall=wall)
@@ -1104,6 +1124,396 @@ def serve_phase(card: str):
         f"ms, warm {row['warm_s'] * 1e3:.2f} ms; conservation exact; "
         f"{card}")
     return found, http
+
+
+# phase 17: lm_stream's embedding at xlstm-125m's published widths, with
+# EmbedSpec's own sizes (the registry's lm scenarios cut the bank to 64
+# entries of 16 tokens for the CPU smoke)
+LM_FULL = {"embed.reduced": False, "embed.seq_len": 48,
+           "embed.bank_size": 512, "embed.batch_size": 64}
+
+
+def _int_outputs(out) -> dict:
+    """A run's integer tensors as one flat dict (series and per-shard
+    diagnostics under dotted names)."""
+    return {k: v for k, v in _outputs(out).items()
+            if not v.is_floating_point()}
+
+
+def lm_stream_phase(card: str):
+    """Phase 17: the LM stream at full width on the card (see the module
+    docstring); fails at the first check that does not hold. Returns the
+    numbers PERF.md reports."""
+    import asyncio
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import full_fp32
+    from repro_torch.embed import bank as ebank
+    from repro_torch.embed import encoder as eenc
+    from repro_torch.embed.corpus import make_tokens
+    from repro_torch.kernels.ds_estep import ds_estep
+    from repro_torch.labelstream import router
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models import model as mmodel
+    from repro_torch.models.params import count_params, tree_map
+    from repro_torch.obs import timing
+    from repro_torch.scenarios import get_scenario, run, to_stream_config
+    from repro_torch.serving.server import LabelServer, ServeClient
+    kern = {n: importlib.import_module(f"repro_torch.kernels.{m}")
+            for n, m in (("entropy_scores", "uncertainty"),
+                         ("flash_attention", "flash_attention"),
+                         ("linear_scan", "linear_scan"),
+                         ("streaming_xent", "xent"))}
+
+    def launches():
+        return {"ds_estep": ds_estep.launches,
+                **{n: getattr(mod, n).launches for n, mod in kern.items()}}
+
+    res = {}
+    # ---- (a) the full-width bank ------------------------------------------
+    spec = get_scenario("lm_stream", LM_FULL)
+    cfg = to_stream_config(spec)
+    L, C = cfg.learner, cfg.n_classes
+    ec = L.embed
+    mcfg = eenc.resolved_config(ec)
+    check(mcfg == get_config("xlstm-125m") and not ec.reduced,
+          "[lm a] lm_stream does not embed with the full-width xlstm-125m")
+    n_params = count_params(mmodel.model_template(mcfg))
+    before = launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = router._bank_for(cfg, "cuda")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = ebank._bank.__wrapped__(ec, C, L.n_features, L.class_sep,
+                                    L.hard_sep_scale, eenc.device_key("cuda"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_micro = ec.bank_size // ec.batch_size
+    check(bank.shape == (2, C, ec.bank_size // (2 * C), L.n_features)
+          and bool(torch.isfinite(bank).all()),
+          f"[lm a] bank shape {tuple(bank.shape)} or values wrong")
+    check(torch.equal(bank, again.feats), "[lm a] the full-width bank is "
+          "not bit-repeatable on the card")
+    say(f"[lm a] xlstm-125m at full width ({mcfg.n_layers} layers, d_model "
+        f"{mcfg.d_model}, {mcfg.n_heads} heads of {mcfg.head_dim}, vocab "
+        f"{mcfg.vocab_size}; {n_params} parameters, random from seed "
+        f"{ec.seed}): bank {tuple(bank.shape)} of {ec.bank_size} x "
+        f"{ec.seq_len} tokens in {first_s:.2f} s with the parameter draw, "
+        f"{build_s:.3f} s again ({build_s / n_micro * 1e3:.1f} ms per "
+        f"micro-batch of {ec.batch_size}); the two builds bit-equal; {card}")
+    # one micro-batch against the port's forward on the CPU, same
+    # parameters and projection. In float32 the two agree to rounding; in
+    # bfloat16 (the bank's path) a rounding that goes the other way on one
+    # side compounds through the 12 layers of random weights (measured on
+    # an H100: 0.5% of the mean at 2 layers, 6% at 12, while float32
+    # agrees to 3e-5; PERF.md), so the bfloat16 features are held to what
+    # the forward itself does when its input moves by one bfloat16 ulp
+    K = ec.bank_size // (2 * C)
+    hard = np.repeat(np.arange(2), C * K).astype(bool)
+    labels = np.tile(np.repeat(np.arange(C, dtype=np.int32), K), 2)
+    tokens, lengths = make_tokens(ec, labels, hard, C, mcfg.vocab_size,
+                                  L.class_sep, L.hard_sep_scale)
+    B = ec.batch_size
+    tb, lb = tokens[:B], lengths[:B]
+    params = eenc.model_params(ec, "cuda")
+    proj = eenc.projection(ec, L.n_features, "cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params, is_leaf=torch.is_tensor)
+
+    def rel(got, want):
+        d, scale = (got.cpu() - want).abs(), float(want.abs().mean())
+        return float(d.mean()) / scale, float(d.max()) / scale
+
+    def hidden32(ps, dev):
+        # the forward in float32 throughout (parameters and activations)
+        ps = tree_map(lambda t: t.to(torch.float32), ps,
+                      is_leaf=torch.is_tensor)
+        x = ps["embed"][torch.as_tensor(tb, device=dev).long()]
+        group, n_full, _ = mcfg.layer_groups()
+        with full_fp32():
+            for gp in mmodel._unstack(ps["groups"], n_full):
+                x = mmodel._group_body(x, gp, group, mcfg, "chunked")
+            return mlayers.apply_norm(ps["final_norm"], x, mcfg.norm,
+                                      mcfg.norm_eps).cpu()
+
+    t0 = time.perf_counter()
+    f32 = rel(hidden32(params, "cuda"), hidden32(cpu_params, "cpu"))
+    check(f32[0] <= 2e-4 and f32[1] <= 5e-3, "[lm a] the float32 forward "
+          f"on the card differs from the CPU's: mean {f32[0]:.3g}, max "
+          f"{f32[1]:.3g} of the mean |hidden| (bound 2e-4, 5e-3)")
+    card_f = eenc.encode(ec, tb, lb, L.n_features, device="cuda")
+    cpu_f = eenc.encode(ec, tb, lb, L.n_features, device="cpu",
+                        params=cpu_params, proj=proj.cpu())
+    sign = torch.sign(torch.randn(cpu_params["embed"].shape,
+                                  generator=torch.Generator().manual_seed(1)))
+    moved = dict(cpu_params, embed=cpu_params["embed"]
+                 * (1 + 2.0 ** -8 * sign))
+    moved_f = eenc.encode(ec, tb, lb, L.n_features, device="cpu",
+                          params=moved, proj=proj.cpu())
+    cpu_s = time.perf_counter() - t0
+    bf, ulp = rel(card_f, cpu_f), rel(moved_f, cpu_f)
+    check(bf[0] <= ulp[0] and bf[1] <= ulp[1], "[lm a] the card's bfloat16 "
+          f"features differ from the CPU's (mean {bf[0]:.3g}, max "
+          f"{bf[1]:.3g} of the mean |feature|) by more than a one-ulp move "
+          f"of the input does on the CPU (mean {ulp[0]:.3g}, max "
+          f"{ulp[1]:.3g})")
+    say(f"[lm a] one micro-batch ({B} x {ec.seq_len} tokens) on the card "
+        f"against the port on the CPU, same parameters: float32 forward mean "
+        f"|d| {f32[0]:.3g}, max {f32[1]:.3g} of the mean |hidden| (bound "
+        f"2e-4, 5e-3); bfloat16 features mean {bf[0]:.3g}, max {bf[1]:.3g} "
+        f"of the mean |feature| (the tests' jitted bound 3e-2, 0.3 "
+        f"{'holds' if bf[0] <= 3e-2 and bf[1] <= 0.3 else 'does not hold'}"
+        f"), within the CPU's own response to a one-ulp move of the input "
+        f"(mean {ulp[0]:.3g}, max {ulp[1]:.3g}); CPU {cpu_s:.1f} s")
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eenc.encode(ec, tb, lb, L.n_features, device="cuda")
+    torch.cuda.synchronize()
+    mb_s = (time.perf_counter() - t0) / reps
+    wall, events = kernel_events(
+        lambda: eenc.encode(ec, tb, lb, L.n_features, device="cuda"),
+        cpu=False)
+    n_k = sum(len(v) for k, v in events.items()
+              if not k.startswith(("Memcpy", "Memset")))
+    busy_ms = sum(sum(v) for v in events.values()) / 1e3
+    idle = (1 - busy_ms / (mb_s * 1e3)) * 100 if events else None
+    say(f"[lm a] a micro-batch takes {mb_s * 1e3:.1f} ms "
+        f"({B / mb_s:.0f} tasks embedded/s): "
+        + (f"{n_k} kernels, device busy {busy_ms:.1f} ms, idle "
+           f"{idle:.1f}% (profiler on: {wall * 1e3:.1f} ms); "
+           if events else "device time not measured (no device events); ")
+        + card)
+    if events:
+        for name, us in sorted(((k, sum(v)) for k, v in events.items()),
+                               key=lambda kv: -kv[1])[:6]:
+            say(f"[profile]   {us / 1e3:8.2f} ms  {name[:90]}")
+    res["bank"] = dict(params=n_params, micro_ms=mb_s * 1e3, kernels=n_k,
+                       busy_ms=busy_ms, idle=idle, build_s=build_s,
+                       first_s=first_s, bf16=bf, ulp=ulp, f32=f32)
+
+    # ---- (b) both LM workloads at full width ------------------------------
+    H, N, SEED, H4, N4 = 480, 256, 0, 120, 4
+    for name in ("lm_stream", "lm_chance_hard"):
+        tag = f"[lm b {name}]"
+        sp = get_scenario(name, LM_FULL)
+        scfg = to_stream_config(sp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(sp, horizon=H, n_reps=N, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out2 = run(sp, horizon=H, n_reps=N, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        secs2 = time.perf_counter() - t0
+        a, b = _int_outputs(out["raw"]), _int_outputs(out2["raw"])
+        diff = [k for k in a if not torch.equal(a[k], b[k])]
+        check(not diff, f"{tag} is not repeatable on the card: {diff}")
+        raw = out["raw"]
+        total = lambda k: int(raw[k].sum().item())
+        lhs = total("arrived")
+        rhs = (total("done_all") + total("backlog_end")
+               + total("in_flight_end") + total("dropped"))
+        check(lhs == rhs, f"{tag} conservation fails: {lhs} != {rhs}")
+        check(total("done") > 0 and total("model_known") > 0,
+              f"{tag} nothing finalized or no task model-known")
+        m = out["metrics"]
+        for k in ("sustained_rate", "accuracy", "mean_tis", "cost"):
+            check(math.isfinite(m[k]) and m[k] > 0, f"{tag} metric {k}="
+                  f"{m[k]}")
+        say(f"{tag} {N} reps x {scfg.n_shards} shards x {H} ticks in "
+            f"{secs:.2f} s ({H / secs:.1f} ticks/s, first run with the "
+            f"bank build; {H / secs2:.1f} the second); second run bit-equal "
+            f"in every integer output; arrived {lhs} = done "
+            f"{total('done_all')} + backlog {total('backlog_end')} + in "
+            f"flight {total('in_flight_end')} + dropped {total('dropped')}; "
+            f"model_known {total('model_known')}, accuracy "
+            f"{m['accuracy']:.4f}, votes/task {m['votes_per_task']:.3f}; "
+            f"{card}")
+        # 4 x 120 against the port on the CPU, same bank, init, arrivals
+        ws, banks, seeds = router.draw_init(scfg, N4, SEED + 1)
+        arr = router.draw_arrivals(scfg, H4, N4, seed=SEED + 1,
+                                   device="cuda")
+        sbank = router._bank_for(scfg, "cuda")
+        card_o = router.run_stream(
+            scfg, H4, n_reps=N4, device="cuda", arrivals=arr,
+            init=router.state_from_numpy(scfg, ws, banks, seeds, "cuda"))
+        t1 = time.perf_counter()
+        cpu_o = router.run_stream(
+            scfg, H4, n_reps=N4, device="cpu",
+            arrivals=(arr[0].cpu(), arr[1].cpu()), bank=sbank.cpu(),
+            init=router.state_from_numpy(scfg, ws, banks, seeds, "cpu"))
+        cpu_s = time.perf_counter() - t1
+        a, b = _int_outputs(card_o), _int_outputs(cpu_o)
+        diff = [k for k in a if not torch.equal(a[k].cpu(), b[k])]
+        check(not diff, f"{tag} card and CPU integer outputs differ: {diff}")
+        check(int(card_o["done_all"].sum()) > 0, f"{tag} the "
+              f"{N4} x {H4} run finalized nothing")
+        say(f"{tag} {N4} reps x {H4} ticks on the card equal the port on the "
+            f"CPU in every integer output (same bank, init and arrivals; "
+            f"CPU {cpu_s:.1f} s)")
+        Hp = 40
+        wall, events = kernel_events(
+            lambda: router.run_stream(scfg, Hp, n_reps=N, seed=SEED + 2,
+                                      device="cuda"), cpu=False)
+        n_k = sum(len(v) for k, v in events.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+        busy = sum(sum(v) for v in events.values())
+        tick_us = 1e6 * secs2 / H
+        idle = (1 - busy / Hp / tick_us) * 100 if n_k else None
+        say(f"[profile] lm b {name}, {Hp} ticks: "
+            + (f"{n_k / Hp:.0f} kernels per tick, device busy "
+               f"{busy / Hp:.0f} us per tick of {tick_us:.0f} us: idle "
+               f"{idle:.1f}%; " if n_k else "device time not measured; ")
+            + card)
+        res[name] = dict(ticks_per_s=H / secs2, kernels=n_k / Hp if n_k
+                         else None, idle=idle)
+
+    # ---- (c) live text over HTTP ------------------------------------------
+    n_clients, per_client = 8, 32
+    words = ("label review movie product great terrible fine awful good "
+             "bad service order late fast broken works quality price "
+             "refund support").split()
+
+    async def load():
+        srv = await LabelServer(spec, seed=SEED, port=0, tick_interval_s=0.0,
+                                device="cuda").start()
+
+        async def client(ci):
+            rng = np.random.default_rng(100 + ci)
+            c = await ServeClient(srv.host, srv.port).connect()
+            got = []
+            for i in range(per_client):
+                text = " ".join(rng.choice(words, rng.integers(4, 30)))
+                label = int(rng.integers(0, C)) if i % 4 == 0 else None
+                st, r = await c.submit(wait=True, timeout_s=120.0,
+                                       text=text, label=label)
+                got.append((st, r, label))
+            await c.aclose()
+            return got
+
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*[client(i) for i in range(n_clients)])
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+        await srv.close()
+        return [x for g in got for x in g], wall, stats
+
+    timing.clear()
+    got, wall, stats = asyncio.run(asyncio.wait_for(load(), 400))
+    n = n_clients * per_client
+    done = [(r, lab) for st, r, lab in got
+            if st == 200 and r["status"] == "done"]
+    check(len(done) == n and stats["answered"] == n
+          and stats["conservation"], f"[lm c] {len(done)}/{n} answered, "
+          f"stats {stats}")
+    given = [(r["label"], lab) for r, lab in done if lab is not None]
+    check(len(given) == n // 4 and all(0 <= r < C for r, _ in given),
+          "[lm c] a labelled request was not answered with a label")
+    agree = sum(r == lab for r, lab in given) / len(given)
+    # the given label is the task's true label; the crowd (Beta(18, 2)
+    # accuracies, finalized at 0.95 confidence) answers it for ~96% of
+    # tasks, so three quarters is far below what a working path gives
+    check(agree >= 0.75, f"[lm c] only {agree:.3f} of the labelled "
+          "requests were answered with their given label")
+    rows = {r["name"]: r for r in stats["timing"]}
+    emb, tick = rows.get("serve.embed"), rows["serve.tick"]
+    check(emb is not None and emb["calls"] > 0, "[lm c] no embed_texts call")
+    embed_ms = emb["total_s"] / emb["calls"] * 1e3
+    res["http"] = dict(tasks_per_s=n / wall, p50_s=stats["p50_latency_s"],
+                       p95_s=stats["p95_latency_s"], ticks=stats["ticks"],
+                       embed_ms=embed_ms, embed_calls=emb["calls"],
+                       tick_ms=tick["total_s"] / tick["calls"] * 1e3,
+                       agree=agree)
+    say(f"[lm c] {n_clients} clients x {per_client} text submissions "
+        f"(wait=true, {len(given)} with a known label) to lm_stream at full "
+        f"width: {n} answered in {wall:.2f} s ({n / wall:.2f} answered "
+        f"tasks/s), p50 {stats['p50_latency_s'] * 1e3:.1f} ms, p95 "
+        f"{stats['p95_latency_s'] * 1e3:.1f} ms; {stats['ticks']} ticks, "
+        f"{emb['calls']} embed_texts calls at {embed_ms:.1f} ms each (cold "
+        f"{emb['cold_s'] * 1e3:.1f} ms), serve tick "
+        f"{res['http']['tick_ms']:.2f} ms; answers equal to the given label "
+        f"{agree:.3f}; "
+        f"conservation exact; {card}")
+    used = {k: launches()[k] - before[k] for k in before}
+    say(f"[lm] kernel launches in phase 17 (the LM stream runs none of the "
+        f"five: no refresh, C = 2, no attention, no scan, no loss): {used}")
+    res["launches"] = used
+    return res
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        f"{torch.cuda.get_device_name(0)}, power limit unknown"
+
+
+def lm_depth(card: str):
+    """``python3 chip_smoke.py --lm-depth``: the full-width xlstm-125m
+    forward of 16 bank tasks on the card against the CPU after each
+    mLSTM + sLSTM group, in bfloat16 and in float32, beside the CPU's and
+    the card's response to moving the embedded input by one bfloat16 ulp
+    (2^-8 relative, random signs)."""
+    from repro_torch.device import full_fp32
+    from repro_torch.embed import encoder as eenc
+    from repro_torch.embed.corpus import make_tokens
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models import model as mmodel
+    from repro_torch.models.params import tree_map
+    from repro_torch.scenarios import get_scenario, to_stream_config
+
+    cfg = to_stream_config(get_scenario("lm_stream", LM_FULL))
+    L, C = cfg.learner, cfg.n_classes
+    ec = L.embed
+    mcfg = eenc.resolved_config(ec)
+    K = ec.bank_size // (2 * C)
+    hard = np.repeat(np.arange(2), C * K).astype(bool)
+    labels = np.tile(np.repeat(np.arange(C, dtype=np.int32), K), 2)
+    tokens, _ = make_tokens(ec, labels, hard, C, mcfg.vocab_size,
+                            L.class_sep, L.hard_sep_scale)
+    tb = torch.as_tensor(tokens[:16]).long()
+    group, n_full, _ = mcfg.layer_groups()
+    params = eenc.model_params(ec, "cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params, is_leaf=torch.is_tensor)
+    sign = torch.sign(torch.randn((16, ec.seq_len, mcfg.d_model),
+                                  generator=torch.Generator().manual_seed(0)))
+
+    def hidden(ps, dev, dtype, move):
+        ps = tree_map(lambda t: t.to(dtype), ps, is_leaf=torch.is_tensor)
+        x = ps["embed"][tb.to(dev)]
+        if move:
+            x = (x.float() * (1 + 2.0 ** -8 * sign.to(dev))).to(dtype)
+        outs = []
+        with full_fp32():
+            for gp in mmodel._unstack(ps["groups"], n_full):
+                x = mmodel._group_body(x, gp, group, mcfg, "chunked")
+                outs.append(mlayers.apply_norm(
+                    ps["final_norm"], x, mcfg.norm, mcfg.norm_eps
+                ).float().cpu())
+        return outs
+
+    def rel(a, b):
+        d, scale = (a - b).abs(), b.abs().mean()
+        return f"mean {float(d.mean() / scale):.3g} max " \
+            f"{float(d.max() / scale):.3g}"
+
+    for dtype in (torch.bfloat16, torch.float32):
+        g, c = hidden(params, "cuda", dtype, False), \
+            hidden(cpu_params, "cpu", dtype, False)
+        cm, gm = hidden(cpu_params, "cpu", dtype, True), \
+            hidden(params, "cuda", dtype, True)
+        for k in range(n_full):
+            say(f"[depth] {str(dtype)[6:]} after {len(group) * (k + 1)} "
+                f"layers: card vs CPU {rel(g[k], c[k])}; CPU moved one ulp "
+                f"{rel(cm[k], c[k])}; card moved {rel(gm[k], g[k])} (of "
+                f"the mean |hidden|); {card}")
 
 
 def launch_times(src: str):
@@ -1134,6 +1544,19 @@ def main():
         sys.exit(2)
     if len(sys.argv) == 3 and sys.argv[1] == "--launch-times":
         launch_times(sys.argv[2])
+        return
+    if len(sys.argv) == 2 and sys.argv[1] in ("--phase17", "--lm-depth"):
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = card_line()
+        say(card)
+        if sys.argv[1] == "--lm-depth":
+            lm_depth(card)
+            return
+        from repro_torch.scenarios import smoke
+        check(smoke.main(["--device", "cuda"]) == 0,
+              "[serve a] the registry smoke failed on the card")
+        lm_stream_phase(card)
         return
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
@@ -1185,6 +1608,8 @@ def main():
     card_kind = torch.cuda.get_device_name(0)
 
     # ---- phase 1: the card and the build --------------------------------
+    t_smoke = time.perf_counter()
+    say(f"[phase 1] starts at {time.perf_counter() - t_smoke:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1209,6 +1634,7 @@ def main():
         f"{estep_task_plan(1, 8193, 8, 1 << 20, 5)}")
 
     # ---- phase 2: kernel vs plain version --------------------------------
+    say(f"[phase 2] starts at {time.perf_counter() - t_smoke:.1f} s")
     # every shape on its own route (estep_route) and, where that is the task
     # route, on the group route too: logp equal to the plain version bit
     # for bit, post within the reference test's tolerance, a zero-vote task
@@ -1291,6 +1717,7 @@ def main():
     del buf, off
 
     # ---- phase 3: offline EM ---------------------------------------------
+    say(f"[phase 3] starts at {time.perf_counter() - t_smoke:.1f} s")
     T, V, W, C = 1 << 20, 5, 1024, 4
     g = torch.Generator(device=dev)
     g.manual_seed(11)
@@ -1352,6 +1779,7 @@ def main():
     check(d_post <= 1e-4 and d_acc <= 1e-4, "offline EM: card and CPU differ")
 
     # ---- phase 4: the stream ---------------------------------------------
+    say(f"[phase 4] starts at {time.perf_counter() - t_smoke:.1f} s")
     # through the front door: the registry scenario with the learner's
     # refresh knobs, lowered and run by scenarios.run
     spec4 = scen.get_scenario("skewed_adaptive5", {
@@ -1463,6 +1891,7 @@ def main():
             f"equal; float sums rel diff {rel:.3g}")
 
     # ---- phase 5: timings ------------------------------------------------
+    say(f"[phase 5] starts at {time.perf_counter() - t_smoke:.1f} s")
     # per call: CUDA events around back-to-back calls (what a caller pays,
     # launch overhead included); device: the kernel's own device time from
     # the profiler (mean over the launches it recorded). The routes run in
@@ -1548,6 +1977,7 @@ def main():
         say("[profile] stream: device time not measured (no device events)")
 
     # ---- phase 6: the entropy kernel against its plain version ----------
+    say(f"[phase 6] starts at {time.perf_counter() - t_smoke:.1f} s")
     # tolerances are the reference tests': learner widths and the LM vocab
     # as tests/test_kernels.py (atol max(tol, 1e-4) * 10, rtol 1e-2, tol
     # 2e-5 in float32 and 2e-2 in bfloat16), the odd shapes as
@@ -1629,6 +2059,7 @@ def main():
           "entropy kernel is wrong on an unaligned base")
 
     # ---- phase 7: the hybrid-learning loop ------------------------------
+    say(f"[phase 7] starts at {time.perf_counter() - t_smoke:.1f} s")
     # run_learning("hybrid_small") at its spec-built dataset and at the
     # paper's MNIST-sized problem (mnist_like(4000, seed=4) split 3:1),
     # 64 replications x 10 rounds x 60 fit steps, twice each
@@ -1850,6 +2281,7 @@ def main():
                 "device events)")
 
     # ---- phase 8: the flash_attention kernel against its plain version ---
+    say(f"[phase 8] starts at {time.perf_counter() - t_smoke:.1f} s")
     # tolerances as tests/test_kernels.py: 2e-5 in float32 (the kernel sums
     # q.k and p v in another order than the plain version's matmuls), 2e-2
     # in bfloat16 (both round the output to bfloat16; the kernel rounds each
@@ -1921,6 +2353,7 @@ def main():
                                         (q, k, v))
 
     # ---- phase 9: the linear_scan kernels against their plain versions --
+    say(f"[phase 9] starts at {time.perf_counter() - t_smoke:.1f} s")
     # tolerance 20x tests/test_kernels.py's (as its scan test). Each route's
     # kernel rounds the same multiplies and adds in the same order as its
     # plain version (sequential: linear_scan_ref; chunked: chunks of
@@ -1983,6 +2416,7 @@ def main():
             scan_inputs_kept[label] = (a, b, h0)
 
     # ---- phase 10: LM-featured learning at full width --------------------
+    say(f"[phase 10] starts at {time.perf_counter() - t_smoke:.1f} s")
     OV10 = {"features.kind": "lm", "embed.model": "recurrentgemma-2b",
             "embed.reduced": EMBED_REDUCED}
     spec10 = get_learning_spec("hybrid_small", OV10)
@@ -2408,6 +2842,7 @@ def main():
         say("[profile] encoder: device time not measured (no device events)")
 
     # ---- phase 11: the streaming_xent kernels against their plain versions
+    say(f"[phase 11] starts at {time.perf_counter() - t_smoke:.1f} s")
     # free what the earlier phases hold on the card: the encoder's cached
     # full-width parameters (11.6 GB) and the kept kernel inputs
     del params10, cp10, gp0, xb, flash_inputs_kept, scan_inputs_kept
@@ -2509,6 +2944,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- phase 12: the backward kernels against their plain backward ----
+    say(f"[phase 12] starts at {time.perf_counter() - t_smoke:.1f} s")
     # flash: dq, dk, dv against attention_bwd_ref (float32, P materialized)
     # on the kernel forward's o, at the reference tests' 2e-2 in bfloat16
     # (both round float32 sums to bfloat16) and 1e-4 in float32 (5x the
@@ -2747,6 +3183,7 @@ def main():
     del q, k, v, o, a, b, h0, hs, lg, xl, flow
 
     # ---- phase 13: training recurrentgemma-2b at full width --------------
+    say(f"[phase 13] starts at {time.perf_counter() - t_smoke:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     cfg13 = get_config("recurrentgemma-2b")
@@ -3040,19 +3477,28 @@ def main():
           and scan_ch[1] > 0 and scan_r[1] > 0, "a linear_scan kernel of "
           "the main paths was not launched")
     # ---- phase 14: the learner-aware stream tick --------------------------
+    say(f"[phase 14] starts at {time.perf_counter() - t_smoke:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     stream_learner_phase(card)
 
     # ---- phase 15: the scenario front door and the live serve path ------
+    say(f"[phase 15] starts at {time.perf_counter() - t_smoke:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     serve_phase(card)
 
     # ---- phase 16: traces and traced sweeps -------------------------------
+    say(f"[phase 16] starts at {time.perf_counter() - t_smoke:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     estep9 = traced_sweeps_phase(card, phase4)
+
+    # ---- phase 17: the LM stream at full width ----------------------------
+    say(f"[phase 17] starts at {time.perf_counter() - t_smoke:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_stream_phase(card)
 
     # ds_estep: the public call at the stream's refresh shape (the task
     # route's warp mode), and the task kernel at the offline EM's C4 shape
@@ -3060,6 +3506,7 @@ def main():
     # route at the two learning shapes
     t_off = timings["offline-C4"]
     e_mnist = ent_t["learn-mnist"]
+    say(f"[phase] all done at {time.perf_counter() - t_smoke:.1f} s")
     say(json.dumps({"kernels": [{
         "name": "ds_estep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ds_estep.cu",

@@ -5,8 +5,9 @@ the layer stack, tiled (and truncated) to ``n_layers``. Block kinds:
 ``attn`` (self-attention + MLP, full or sliding window), ``xattn``
 (attention + cross-attention), ``moe`` (attention + mixture of experts),
 ``mlstm`` / ``slstm`` (xLSTM) and ``rglru`` (RG-LRU + MLP, RecurrentGemma).
-The port's model runs ``attn`` and ``rglru``; the other kinds are described
-here so that every registered architecture resolves.
+The port's model runs ``attn``, ``rglru``, ``mlstm`` and ``slstm``; the
+other kinds are described here so that every registered architecture
+resolves.
 """
 from __future__ import annotations
 
@@ -82,6 +83,11 @@ class ModelConfig:
                 raise ValueError(f"{self.name}: non-tiling block pattern "
                                  f"{blocks}")
         return group, n_full, tuple(blocks[n_full * g:])
+
+    def _ff_inner(self) -> int:
+        """The sLSTM block's GEGLU width: ~8/3 of d_model, a multiple of
+        64 (2048 for xlstm-125m)."""
+        return max(64, int(self.d_model * 8 / 3) // 64 * 64)
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

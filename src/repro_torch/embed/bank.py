@@ -5,9 +5,10 @@
 from a synthetic corpus encoded through the model (what
 ``run_learning`` uses for ``features.kind="lm"``). :func:`embedding_bank`
 precomputes the standardized ``(2, n_classes, variants, n_features)`` bank
-(easy/hard x class x variant) that the reference's stream tick gathers from
-with :func:`bank_gather`; the port's stream tick has no LM path yet
-(ROADMAP), so the bank and :func:`embed_texts` serve callers directly.
+(easy/hard x class x variant) that the stream and serve ticks gather from
+with :func:`bank_gather` (``labelstream.router._bank_for``), cached per
+embedding config, workload and device; :func:`embed_texts` maps submitted
+text into the bank's feature space for the live server.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.embed.config import EmbedConfig
 from repro_torch.embed.corpus import make_tokens, tokenize_text
-from repro_torch.embed.encoder import encode, resolved_config
+from repro_torch.embed.encoder import device_key, encode, resolved_config
 from repro_torch.learning.features import standardize
 
 
@@ -69,10 +70,10 @@ def _bank(ec, n_classes, n_features, class_sep, hard_sep_scale, device):
 def embedding_bank(ec: EmbedConfig, n_classes: int, n_features: int,
                    class_sep: float, hard_sep_scale: float = 1.0, *,
                    device="cuda") -> EmbeddingBank:
-    """Build (and cache) the bank for one embedding + workload config."""
-    dev = resolve_device(device)
+    """Build (and cache) the bank for one embedding + workload config, per
+    device."""
     return _bank(ec, n_classes, n_features, class_sep, hard_sep_scale,
-                 str(dev))
+                 device_key(device))
 
 
 def bank_gather(feats, u, tl, diff):

@@ -41,8 +41,17 @@ def resolved_config(ec: EmbedConfig):
     return reduced(cfg) if ec.reduced else cfg
 
 
-# two parameter sets at most: a full-width recurrentgemma-2b is 11.6 GB of
-# float32 master weights
+def device_key(device) -> str:
+    """The cache key of ``device``: ``"cpu"`` or ``"cuda:<index>"``, so
+    that ``"cuda"`` and the current card's ``"cuda:0"`` share one entry."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+# two parameter sets at most: a full-width recurrentgemma-2b (11.6 GB of
+# float32 master weights) and a full-width xlstm-125m (0.5 GB) fit together
 @functools.lru_cache(maxsize=2)
 def _params(model: str, is_reduced: bool, seed: int, device: str):
     cfg = resolved_config(EmbedConfig(model=model, reduced=is_reduced))
@@ -54,8 +63,7 @@ def model_params(ec: EmbedConfig, device="cuda"):
     """Seeded random-init float32 parameters of the embedding model on
     ``device`` (no training: random features through a structured
     architecture are the reference's baseline too)."""
-    dev = resolve_device(device)
-    return _params(ec.model, ec.reduced, ec.seed, str(dev))
+    return _params(ec.model, ec.reduced, ec.seed, device_key(device))
 
 
 @functools.lru_cache(maxsize=8)
@@ -75,8 +83,8 @@ def projection(ec: EmbedConfig, n_features: int, device="cuda"):
         raise ValueError(
             f"EmbedConfig.projection_dim={ec.projection_dim} != requested "
             f"feature width {n_features}")
-    dev = resolve_device(device)
-    return _projection(ec.model, ec.reduced, ec.seed, n_features, str(dev))
+    return _projection(ec.model, ec.reduced, ec.seed, n_features,
+                       device_key(device))
 
 
 def _embed_batch(cfg, params, tokens, lengths, pooling, proj):

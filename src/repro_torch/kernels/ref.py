@@ -37,6 +37,14 @@ def entropy_ref(logits):
     return -(torch.exp(logp) * logp).sum(-1)
 
 
+def margin_ref(logits):
+    """Top-1 minus top-2 softmax probability per row (a low margin is an
+    uncertain row): (..., V) logits, V >= 2 -> (...) float32."""
+    p = torch.softmax(logits.to(torch.float32), dim=-1)
+    top2 = torch.topk(p, 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
 def attention_ref(q, k, v, *, causal=True, window=0):
     """Materialized GQA attention in float32. q: (B, Hq, Sq, D); k, v:
     (B, Hkv, Sk, D); q head h reads kv head h // (Hq // Hkv). Masks by

@@ -26,6 +26,7 @@ _EXPORTS = {
     "StreamLearnerConfig": "router",
     "ShardingConfig": "router",
     "StreamTraced": "router",
+    "heterogeneous_stream_config": "router",
     "run_stream": "router",
     "run_stream_sweep": "router",
     "run_stream_votes_sweep": "router",

@@ -55,8 +55,18 @@ one batched run: each point's initial state and arrivals are drawn as its
 standalone :func:`run_stream` draws them, and the tick takes per-row vote
 caps and difficulty mixtures, so each point equals its standalone run.
 
-Not yet ported (the config validator refuses them): LM task features
-(ROADMAP A12b) and device sharding (A13).
+With ``learner.feature_kind="lm"`` the task features are LM embeddings of
+synthetic task text: the tick gathers them from the embedding bank
+(``repro_torch.embed.bank``, built once per config and device by
+:func:`_bank_for`, or injected through ``bank=``) with the uniform the
+Gaussian path would spend on its first feature coordinate, so labels,
+difficulty and votes stay the same streams. In serve mode an LM task's
+identity is bound at arrival and rides the backlog (and a steal) to its
+admission, so a submitter's real-text embedding and known label reach its
+window slot.
+
+Not yet ported (the config validator refuses it): device sharding (ROADMAP
+A13).
 """
 from __future__ import annotations
 
@@ -76,6 +86,7 @@ from repro_torch.core.simfast import (
     draw_latency, priority_match,
 )
 from repro_torch.device import resolve_device
+from repro_torch.embed.bank import bank_gather, embedding_bank
 from repro_torch.labelstream.aggregate import _add_at, _count_rows, _ds_em
 from repro_torch.labelstream.arrivals import (
     ArrivalConfig, init_arrival_state, sample_arrivals,
@@ -98,14 +109,16 @@ from repro_torch.obs.trace import TraceConfig
 @dataclasses.dataclass(frozen=True)
 class StreamLearnerConfig:
     """Streaming hybrid learning knobs; fields and defaults as in the
-    reference. ``feature_kind="lm"`` (LM embeddings from a bank) is not
-    ported yet."""
+    reference. ``feature_kind`` is ``"gaussian"`` (class-conditional
+    Gaussians drawn in the tick) or ``"lm"`` (LM embeddings gathered from
+    the embedding bank of ``embed``, a
+    :class:`~repro_torch.embed.config.EmbedConfig`)."""
     enabled: bool = False
     n_features: int = 8
     class_sep: float = 1.8
     hard_sep_scale: float = 1.0
     feature_kind: str = "gaussian"
-    embed: Optional[object] = None   # an EmbedConfig in the reference; None
+    embed: Optional[object] = None   # an EmbedConfig iff feature_kind="lm"
     prior_scale: float = 1.0
     ramp_n: float = 48.0
     known_threshold: float = 0.97
@@ -201,6 +214,23 @@ class StreamConfig:
         )
 
 
+def heterogeneous_stream_config(**overrides) -> StreamConfig:
+    """The canonical heterogeneous-pool workload where worker-aware routing
+    has signal to exploit: a wide Beta(2, 1) worker-accuracy spread, a weak
+    estimation prior so the online estimates separate workers, hour-long
+    sessions so they stay valid, and drip adaptive redundancy (one
+    outstanding vote, finalize at 0.95). ``overrides`` are StreamConfig
+    fields applied on top."""
+    base = dict(
+        n_shards=2, pool_size=8, window=16, dt=5.0, tis_bin_s=8.0,
+        arrivals=ArrivalConfig(kind="poisson", rate=0.012),
+        acc_a=2.0, acc_b=1.0, est_prior_n=2.0, session_mean_s=3600.0,
+        policy=PolicyConfig(adaptive=True, votes_cap=5, conf_threshold=0.95,
+                            min_votes=1, max_outstanding=1))
+    base.update(overrides)
+    return StreamConfig(**base)
+
+
 class StreamTraced(NamedTuple):
     """Absolute per-point overrides of the static stream knobs: the grid
     bundle of :func:`run_stream_grid`. Each leaf replaces the same-named
@@ -272,7 +302,19 @@ def _init_backlog(cfg: StreamConfig, B: int, device):
     if cfg.serve:
         # the request uid of every backlog entry (serve mode)
         bl["uid"] = torch.full((B, Q + 1), -1, dtype=torch.int64, **z)
+    if _lm_ring(cfg):
+        # serve + lm binds task identity at ARRIVAL (a submitter's label and
+        # embedding ride the FIFO ring to the admission tick)
+        bl["tlab"] = torch.zeros((B, Q + 1), dtype=torch.int64, **z)
+        bl["diff"] = torch.ones((B, Q + 1), **z)
+        bl["feat"] = torch.zeros((B, Q + 1, cfg.learner.n_features), **z)
     return bl
+
+
+def _lm_ring(cfg: StreamConfig) -> bool:
+    """Whether the FIFO backlog carries task identity (serve + lm)."""
+    return (cfg.serve and cfg.learner.feature_kind == "lm"
+            and cfg.routing.admission == "fifo")
 
 
 def _init_learner(cfg: StreamConfig, n_reps: int, device):
@@ -425,16 +467,34 @@ def _mixture(cfg: StreamConfig, ov):
     return ov["p_hard"], ov["hard_scale"]
 
 
+def _lm_identity(bank, u, tl, diff, feat_in=None, labels_in=None):
+    """An LM task's label and features: labels ``labels_in`` >= 0 replace
+    the drawn ``tl``, the bank gather by ``u`` gives the features, and
+    ``feat_in`` rows whose first entry is finite (real-text embeddings)
+    replace them."""
+    if labels_in is not None:
+        tl = torch.where(labels_in >= 0, labels_in, tl)
+    feat = bank_gather(bank, u, tl, diff)
+    if feat_in is not None:
+        feat = torch.where(torch.isfinite(feat_in[..., :1]), feat_in, feat)
+    return tl, feat
+
+
 def _admit_fifo(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
-                seed, uid_base=None, ov=None):
+                seed, uid_base=None, ov=None, bank=None, feat_in=None,
+                labels_in=None):
     """FIFO ring push of this tick's arrivals and admission of the oldest
     into the free window slots; task identity (difficulty, label, features)
     is drawn at admission. In serve mode the arrivals carry the uids
-    ``uid_base + i`` through the backlog's uid ring. ``ov`` holds a
-    sweep's per-row overrides (see :func:`_shard_tick`). Returns ``(bl,
-    dropped, admit, arr_t, diff, tl, featw, uid_w, adm)``; ``featw`` is
-    None without the learner, ``uid_w`` (the admitted uids) outside serve
-    mode, ``adm`` (the ranked admission's mean score) always None here."""
+    ``uid_base + i`` through the backlog's uid ring; with LM features
+    there, identity is drawn at arrival instead (labels ``labels_in`` and
+    embeddings ``feat_in`` (B, M, ...) may replace it, see
+    :func:`_lm_identity`) and rides the ring with the uid. ``bank`` is the
+    (2, C, K, F) embedding bank of LM features. ``ov`` holds a sweep's
+    per-row overrides (see :func:`_shard_tick`). Returns ``(bl, dropped,
+    admit, arr_t, diff, tl, featw, uid_w, adm)``; ``featw`` is None without
+    the learner, ``uid_w`` (the admitted uids) outside serve mode, ``adm``
+    (the ranked admission's mean score) always None here."""
     Ws, C, Q, M = cfg.window, cfg.n_classes, cfg.backlog, \
         cfg.max_arrivals_per_tick
     L, B, dev = cfg.learner, seed.shape[0], seed.device
@@ -459,9 +519,32 @@ def _admit_fifo(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
         bl_new["uid"] = bl["uid"].scatter(1, posw, torch.where(
             slot < n_push[:, None], uid_base[:, None] + slot, -1))
         uid_w = torch.gather(bl_new["uid"], 1, src)
+    ph, hs = _mixture(cfg, ov)
+    if _lm_ring(cfg):
+        # identity drawn at ARRIVAL (or injected) rides the ring; the dump
+        # slot keeps its fills (0, 1.0, 0.0)
+        F = L.n_features
+        ua = _uniform_block(seed ^ 0x0BAD5EED, step, 3 * M).reshape(B, 3, M)
+        diff_a = torch.where(ua[:, 0] < ph, hs, 1.0)
+        tl_a = torch.clamp(torch.floor(ua[:, 1] * C).to(torch.int64), 0,
+                           C - 1)
+        tl_a, feat_a = _lm_identity(bank, ua[:, 2], tl_a, diff_a, feat_in,
+                                    labels_in)
+        okp = slot < n_push[:, None]
+        bl_new["tlab"] = bl["tlab"].scatter(1, posw, torch.where(okp, tl_a,
+                                                                 0))
+        bl_new["diff"] = bl["diff"].scatter(1, posw, torch.where(okp, diff_a,
+                                                                 1.0))
+        bl_new["feat"] = bl["feat"].scatter(
+            1, posw[..., None].expand(B, M, F),
+            torch.where(okp[..., None], feat_a, 0.0))
+        diff = torch.gather(bl_new["diff"], 1, src)
+        tl = torch.gather(bl_new["tlab"], 1, src)
+        featw = torch.gather(bl_new["feat"], 1,
+                             src[..., None].expand(-1, -1, F))
+        return bl_new, dropped, admit, arr_t, diff, tl, featw, uid_w, None
     # fresh-task draws at ADMISSION (difficulty mixture + label)
     uw = _uniform_block(seed ^ 0x33CC33CC, step, 2 * Ws).reshape(B, 2, Ws)
-    ph, hs = _mixture(cfg, ov)
     diff = torch.where(uw[:, 0] < ph, hs, 1.0)
     tl = torch.clamp(torch.floor(uw[:, 1] * C).to(torch.int64), 0, C - 1)
     featw = None
@@ -469,18 +552,26 @@ def _admit_fifo(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
         F = L.n_features
         uf = _uniform_block(seed ^ 0x5EEDF00D, step, 2 * Ws * F
                             ).reshape(B, 2, Ws, F)
-        featw = _task_features(uf[:, 0], uf[:, 1], tl, diff, L, C)
+        if L.feature_kind == "lm":
+            # the Gaussian draw's block, its first column picking the bank
+            # variant, so every other stream stays the same
+            featw = bank_gather(bank, uf[:, 0, :, 0], tl, diff)
+        else:
+            featw = _task_features(uf[:, 0], uf[:, 1], tl, diff, L, C)
     return bl_new, dropped, admit, arr_t, diff, tl, featw, uid_w, None
 
 
 def _admit_ranked(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
-                  seed, lp, uid_base=None, ov=None):
+                  seed, lp, uid_base=None, ov=None, bank=None, feat_in=None,
+                  labels_in=None):
     """Learner-driven admission: this tick's arrivals draw their identity
     (difficulty, label, features) now and take the free slots of the
     slot-array backlog (the i-th arrival the i-th free slot); queued tasks
     enter the window most uncertain first under the current model (times
     the learnability head's estimate under ``uncertain_learnable``), ties
-    in slot order. Serve mode's uids take the arrivals' backlog slots.
+    in slot order. Serve mode's uids take the arrivals' backlog slots. LM
+    features come from ``bank`` (the arrival's third uniform picks the
+    variant), with ``labels_in`` / ``feat_in`` as in :func:`_admit_fifo`.
     Returns what :func:`_admit_fifo` does, ``adm`` being the mean
     admission score of the tasks admitted (B,) when the trace records
     per-tick series, else None."""
@@ -502,8 +593,13 @@ def _admit_ranked(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
     ph, hs = _mixture(cfg, ov)
     diff_a = torch.where(ua[:, 0] < ph, hs, 1.0)
     tl_a = torch.clamp(torch.floor(ua[:, 1] * C).to(torch.int64), 0, C - 1)
-    feat_a = _task_features(ua[:, 2:2 + F].transpose(1, 2),
-                            ua[:, 2 + F:].transpose(1, 2), tl_a, diff_a, L, C)
+    if L.feature_kind == "lm":
+        tl_a, feat_a = _lm_identity(bank, ua[:, 2], tl_a, diff_a, feat_in,
+                                    labels_in)
+    else:
+        feat_a = _task_features(ua[:, 2:2 + F].transpose(1, 2),
+                                ua[:, 2 + F:].transpose(1, 2), tl_a, diff_a,
+                                L, C)
     # the dump row keeps its initial values, so the state stays the same
     # from run to run whatever order duplicate writes land in
     bl_times = bl["times"].scatter(1, dstw, torch.where(ok, t, 0.0))
@@ -549,7 +645,8 @@ def _admit_ranked(cfg: StreamConfig, bl, n_arr, free, frank, gate, t, step,
 
 def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
                 step: int, seed, warmup_t: float, lp: Optional[dict] = None,
-                uid_base=None, ov: Optional[dict] = None):
+                uid_base=None, ov: Optional[dict] = None, bank=None,
+                feat_in=None, labels_in=None):
     """Advance every shard by one tick. ``n_arr`` (B,) are this tick's
     arrivals per shard, ``t`` the tick's time and ``step`` its index (host
     numbers), ``seed`` (B,) the counter seeds, ``lp`` the learner's
@@ -559,8 +656,11 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     ``cap``, the effective vote cap (the buffers stay at the config's
     ``votes_cap``; the row's cap gates vote admission, finalization and the
     outstanding target), and ``p_hard`` / ``hard_scale``, the difficulty
-    mixture. Returns ``(ws, win, bl, metrics, train)``; ``train`` holds the
-    finalized examples for the learner's ring (None without one); in serve
+    mixture. ``bank`` is the embedding bank of LM features and
+    ``feat_in`` / ``labels_in`` serve mode's injected embeddings and labels
+    (see :func:`_admit_fifo`). Returns ``(ws, win, bl, metrics, train)``;
+    ``train`` holds the finalized examples for the learner's ring (None
+    without one); in serve
     mode ``metrics`` also holds the per-slot ``srv_*`` outputs, and with a
     trace the phase histograms and sums (``ph`` (B, 4, tis_bins) / ``ps``
     (B, 4), the phases in ``TRACE_PHASES`` order) and the per-tick
@@ -587,11 +687,11 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     if R.admission != "fifo":
         bl, dropped, admit, arr_t, diff, tl, featw, uid_w, adm = \
             _admit_ranked(cfg, bl, n_arr, free, frank, gate, t, step, seed,
-                          lp, uid_base, ov)
+                          lp, uid_base, ov, bank, feat_in, labels_in)
     else:
         bl, dropped, admit, arr_t, diff, tl, featw, uid_w, adm = \
             _admit_fifo(cfg, bl, n_arr, free, frank, gate, t, step, seed,
-                        uid_base, ov)
+                        uid_base, ov, bank, feat_in, labels_in)
     bl_count = bl["count"]
     win = dict(win)
     win["active"] = win["active"] | admit
@@ -904,8 +1004,9 @@ def _steal_rebalance(cfg: StreamConfig, bl):
     are task identity under FIFO admission), the donations are pooled per
     replication in donation-rank order, and receivers append their claimed
     ranks at the tail: the replication's backlog multiset is unchanged. In
-    serve mode the uid ring moves by the same plan. Returns ``(bl,
-    received, donated)``, the counts (B,)."""
+    serve mode the uid ring moves by the same plan, and with LM features
+    the label, difficulty and embedding rings too, so a stolen entry keeps
+    its identity. Returns ``(bl, received, donated)``, the counts (B,)."""
     sh = cfg.sharding
     S, Q, K = cfg.n_shards, cfg.backlog, sh.steal_max
     B = bl["count"].shape[0]
@@ -930,21 +1031,29 @@ def _steal_rebalance(cfg: StreamConfig, bl):
 
     def move(ring, fill):
         # the donations pooled in rank order (the dump entry S*K and the
-        # ring's dump slot Q only ever take ``fill``)
-        ring = ring.reshape(N, S, Q + 1)
-        don = torch.gather(ring, 2, pos)
-        pool = torch.full((N, S * K + 1), fill, dtype=ring.dtype,
+        # ring's dump slot Q only ever take ``fill``); a ring may carry a
+        # trailing feature axis
+        trail = tuple(ring.shape[2:])
+        ex = lambda i: i.reshape(i.shape + (1,) * len(trail)).expand(
+            i.shape + trail)
+        ring = ring.reshape((N, S, Q + 1) + trail)
+        don = torch.gather(ring, 2, ex(pos))
+        pool = torch.full((N, S * K + 1) + trail, fill, dtype=ring.dtype,
                           device=dev).scatter(
-            1, ranks, torch.where(validd, don, fill).reshape(N, -1)
+            1, ex(ranks),
+            torch.where(ex(validd), don, fill).reshape((N, -1) + trail)
         )[:, :S * K]
-        incoming = torch.gather(pool, 1, claim).reshape(N, S, K)
-        return ring.scatter(2, posr, torch.where(validc, incoming, fill)
-                            ).reshape(B, Q + 1)
+        incoming = torch.gather(pool, 1, ex(claim)).reshape(
+            (N, S, K) + trail)
+        return ring.scatter(2, ex(posr), torch.where(
+            ex(validc), incoming, fill)).reshape((B, Q + 1) + trail)
 
     new = dict(times=move(bl["times"], 0.0), head=head.reshape(B),
                count=(count + take).reshape(B))
-    if "uid" in bl:
-        new["uid"] = move(bl["uid"], -1)
+    for name, fill in (("uid", -1), ("tlab", 0), ("diff", 1.0),
+                       ("feat", 0.0)):
+        if name in bl:
+            new[name] = move(bl[name], fill)
     return new, take.reshape(B), give.reshape(B)
 
 
@@ -1096,13 +1205,14 @@ _TRACE_SERIES = ("votes", "busy_workers", "idle_workers", "dropped",
 
 def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
              rate_scale: float, gen: Optional[torch.Generator],
-             arrivals=None, ov: Optional[dict] = None):
+             arrivals=None, ov: Optional[dict] = None, bank=None):
     """All replications of one run in lock-step: a loop of ``horizon``
     ticks over ``state`` (see :func:`state_from_numpy`). Arrivals are drawn
     from ``gen`` or taken from ``arrivals = (n_new (H, n_reps), n_arr (H,
     n_reps, n_shards))``; ``ov`` holds a sweep's per-row overrides (see
-    :func:`_shard_tick`). Returns ``(out, state)``; ``out`` holds tensors
-    on the state's device, reduced over shards as in the reference."""
+    :func:`_shard_tick`), ``bank`` the embedding bank of LM features.
+    Returns ``(out, state)``; ``out`` holds tensors on the state's device,
+    reduced over shards as in the reference."""
     S, M = cfg.n_shards, cfg.max_arrivals_per_tick
     cap_total = M * S
     seeds = state["seeds"]
@@ -1156,7 +1266,7 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
         n_arr = torch.clamp(n_arr, max=M).reshape(B)
         ws, win, bl, m, train = _shard_tick(
             cfg, ws, banks, win, bl, n_arr, tf, step, seeds, warmup_t,
-            _learner_tick_params(cfg, ls), ov=ov)
+            _learner_tick_params(cfg, ls), ov=ov, bank=bank)
         if steal:
             bl, got, gave = _steal_rebalance(cfg, bl)
             stolen = stolen + got
@@ -1231,11 +1341,26 @@ def _validate_stream_config(cfg: StreamConfig):
     if L.feature_kind not in ("gaussian", "lm"):
         raise ValueError("learner.feature_kind must be 'gaussian' or 'lm', "
                          f"got {L.feature_kind!r}")
-    if L.feature_kind == "lm" and not L.enabled:
-        raise ValueError(
-            "learner.feature_kind='lm' requires learner.enabled: LM "
-            "embeddings exist to feed the learner/fusion path")
-    if L.feature_kind != "lm" and L.embed is not None:
+    if L.feature_kind == "lm":
+        if not L.enabled:
+            raise ValueError(
+                "learner.feature_kind='lm' requires learner.enabled: LM "
+                "embeddings exist to feed the learner/fusion path")
+        if L.embed is None:
+            raise ValueError(
+                "learner.feature_kind='lm' requires learner.embed (an "
+                "EmbedConfig; the scenario layer lowers spec.embed into it)")
+        if L.embed.projection_dim is not None \
+                and L.embed.projection_dim != L.n_features:
+            raise ValueError(
+                f"learner.embed.projection_dim={L.embed.projection_dim} "
+                f"must equal learner.n_features={L.n_features} (the "
+                "projection target IS the learner feature width)")
+        if L.embed.bank_size % (2 * cfg.n_classes) != 0:
+            raise ValueError(
+                f"learner.embed.bank_size={L.embed.bank_size} must be a "
+                f"positive multiple of 2 * n_classes = {2 * cfg.n_classes}")
+    elif L.embed is not None:
         raise ValueError("learner.embed is set but feature_kind="
                          f"{L.feature_kind!r}; an embedding config without "
                          "the lm feature path is a misconfiguration")
@@ -1271,21 +1396,45 @@ def _validate_stream_config(cfg: StreamConfig):
         raise TypeError("StreamConfig.trace must be None or a TraceConfig "
                         "(repro_torch.obs.trace), got "
                         f"{type(cfg.trace).__name__}")
-    unported = [
-        (L.enabled and L.feature_kind == "lm",
-         "learner.feature_kind='lm' (LM task features, ROADMAP A12b)"),
-        (sh.n_devices > 1,
-         f"sharding.n_devices={sh.n_devices} (ROADMAP A13)"),
-    ]
-    for on, what in unported:
-        if on:
-            raise NotImplementedError(f"{what} is not yet ported")
+    if sh.n_devices > 1:
+        raise NotImplementedError(f"sharding.n_devices={sh.n_devices} "
+                                  "(ROADMAP A13) is not yet ported")
+
+
+def _bank_for(cfg: StreamConfig, device="cuda"):
+    """The embedding bank's features (2, C, K, F) on ``device`` (the card
+    unless told otherwise; raises without one) for ``feature_kind="lm"``,
+    built once per config and device (``repro_torch.embed.bank``); None on
+    the Gaussian path."""
+    L = cfg.learner
+    if L.feature_kind != "lm":
+        return None
+    return embedding_bank(L.embed, cfg.n_classes, L.n_features, L.class_sep,
+                          L.hard_sep_scale, device=device).feats
+
+
+def _check_bank(cfg: StreamConfig, bank, device):
+    """An injected bank on ``device`` after checking its layout, else the
+    built one (:func:`_bank_for`)."""
+    if bank is None:
+        return _bank_for(cfg, device)
+    L = cfg.learner
+    if L.feature_kind != "lm":
+        raise ValueError("bank= is only read with learner.feature_kind='lm'")
+    bank = (bank if torch.is_tensor(bank) else torch.from_numpy(
+        np.array(bank, np.float32))).to(device=device, dtype=torch.float32)
+    C, F = cfg.n_classes, L.n_features
+    if bank.dim() != 4 or tuple(bank.shape[:2]) != (2, C) \
+            or bank.shape[3] != F:
+        raise ValueError(f"bank must be (2, {C}, K, {F}), got "
+                         f"{tuple(bank.shape)}")
+    return bank
 
 
 def run_stream(cfg: StreamConfig, horizon: int, *, n_reps: int = 1,
                seed: int = 0, warmup_frac: float = 0.3,
                rate_scale: float = 1.0, device="cuda", init=None,
-               arrivals=None):
+               arrivals=None, bank=None):
     """Run ``n_reps`` replications of the streaming service for ``horizon``
     ticks on ``device``. Steady-state metrics only accumulate after
     ``warmup_frac`` of the horizon; ``rate_scale`` multiplies the offered
@@ -1298,8 +1447,10 @@ def run_stream(cfg: StreamConfig, horizon: int, *, n_reps: int = 1,
     state (which may carry a trained learner) and ``arrivals = (n_new
     (horizon, n_reps), n_arr (horizon, n_reps, n_shards))`` the second;
     ``n_arr`` are per-shard counts before the ``max_arrivals_per_tick``
-    cap. With the learner under ``uncertain_learnable`` the result also
-    holds the learnability head's final ``learn2_W`` / ``learn2_b``.
+    cap. ``bank`` (LM features) replaces the embedding bank the run would
+    build (:func:`_bank_for`) with a (2, n_classes, K, n_features) array.
+    With the learner under ``uncertain_learnable`` the result also holds
+    the learnability head's final ``learn2_W`` / ``learn2_b``.
     """
     _validate_stream_config(cfg)
     dev = resolve_device(device)
@@ -1316,7 +1467,7 @@ def run_stream(cfg: StreamConfig, horizon: int, *, n_reps: int = 1,
     warmup_t = float(warmup_frac * horizon * cfg.dt)
     out, _ = _run_one(cfg, int(horizon), init,
                       float(np.float32(warmup_t)), float(rate_scale), gen,
-                      arrivals)
+                      arrivals, bank=_check_bank(cfg, bank, dev))
     out["warmup_t"] = warmup_t
     out["measured_s"] = horizon * cfg.dt - warmup_t
     return out
@@ -1333,7 +1484,7 @@ def _as_stream_config(cfg) -> StreamConfig:
 
 def _run_points(cfg: StreamConfig, horizon: int, points: list, *,
                 n_reps: int, seed: int, warmup_frac: float, device,
-                timing_name: Optional[str] = None, draws=None):
+                timing_name: Optional[str] = None, draws=None, bank=None):
     """The batched run behind the sweeps: every point x replication x shard
     is a row of one :func:`_run_one`. ``points`` holds one dict per point:
     ``rate_scale`` and ``rate_abs`` (the arrivals), ``acc_a`` / ``acc_b``
@@ -1346,8 +1497,9 @@ def _run_points(cfg: StreamConfig, horizon: int, points: list, *,
     ``(init, arrivals)`` instead: ``init`` the numpy ``(ws, banks, seeds)``
     of :func:`draw_init`, ``arrivals`` the ``(n_new, n_arr)`` of
     :func:`draw_arrivals`. ``timing_name`` records the call's wall time as
-    ``<timing_name>.execute`` in :mod:`repro_torch.obs.timing`. Returns
-    the outputs with leading dims ``(V, n_reps)``."""
+    ``<timing_name>.execute`` in :mod:`repro_torch.obs.timing`; ``bank``
+    replaces the LM embedding bank (see :func:`run_stream`). Returns the
+    outputs with leading dims ``(V, n_reps)``."""
     dev = resolve_device(device)
     V, S = len(points), cfg.n_shards
     t_start = time.perf_counter()
@@ -1397,7 +1549,7 @@ def _run_points(cfg: StreamConfig, horizon: int, points: list, *,
     warmup_t = float(warmup_frac * horizon * cfg.dt)
     out, _ = _run_one(cfg, int(horizon), init, float(np.float32(warmup_t)),
                       1.0, None, (torch.cat(news, 1), torch.cat(arrs, 1)),
-                      ov=ov)
+                      ov=ov, bank=_check_bank(cfg, bank, dev))
     out = _split_points(out, V)
     if timing_name is not None:
         if dev.type == "cuda":
@@ -1418,33 +1570,37 @@ def _split_points(out, V: int):
 
 def run_stream_sweep(cfg, horizon: int, rate_scales, *, n_reps: int = 1,
                      seed: int = 0, warmup_frac: float = 0.3,
-                     shard: bool = True, device="cuda", draws=None):
+                     shard: bool = True, device="cuda", draws=None,
+                     bank=None):
     """Load sweep as one batched run: every offered-rate scale x
     replication x shard is a row of one tick loop (the
     ``scenarios.sweep`` backend for the stream engine's arrival-rate
     axis). Point i equals ``run_stream(cfg, horizon, n_reps=n_reps,
     seed=seed, rate_scale=rate_scales[i])``. ``shard`` is accepted for the
     reference's signature: on one device there is nothing to split.
-    ``draws`` replaces each point's draws (see ``_run_points``). Returns
-    outputs with leading dims ``(len(rate_scales), n_reps)``."""
+    ``draws`` replaces each point's draws and ``bank`` the LM embedding
+    bank (see ``_run_points``). Returns outputs with leading dims
+    ``(len(rate_scales), n_reps)``."""
     cfg = _as_stream_config(cfg)
     _validate_stream_config(cfg)
     points = [dict(rate_scale=float(s)) for s in rate_scales]
     return _run_points(cfg, horizon, points, n_reps=n_reps, seed=seed,
-                       warmup_frac=warmup_frac, device=device, draws=draws)
+                       warmup_frac=warmup_frac, device=device, draws=draws,
+                       bank=bank)
 
 
 def run_stream_votes_sweep(cfg, horizon: int, votes_caps, *, n_reps: int = 1,
                            seed: int = 0, warmup_frac: float = 0.3,
                            rate_scale: float = 1.0, device="cuda",
-                           draws=None):
+                           draws=None, bank=None):
     """Votes-cap sweep as one batched run with MASKED caps: the vote
     buffers are sized at ``max(votes_caps)`` and each row's effective cap
     gates vote admission, finalization and the outstanding-vote target.
     Columns past a row's cap are never written or read, so point i equals
     ``run_stream`` with ``policy.votes_cap = votes_caps[i]`` bit for bit.
-    ``draws`` replaces each point's draws (see ``_run_points``). Returns
-    outputs with leading dims ``(len(votes_caps), n_reps)``."""
+    ``draws`` replaces each point's draws and ``bank`` the LM embedding
+    bank (see ``_run_points``). Returns outputs with leading dims
+    ``(len(votes_caps), n_reps)``."""
     cfg = _as_stream_config(cfg)
     caps = [int(v) for v in votes_caps]
     if not caps:
@@ -1459,14 +1615,15 @@ def run_stream_votes_sweep(cfg, horizon: int, votes_caps, *, n_reps: int = 1,
     _validate_stream_config(cfg)
     points = [dict(rate_scale=float(rate_scale), cap=c) for c in caps]
     return _run_points(cfg, horizon, points, n_reps=n_reps, seed=seed,
-                       warmup_frac=warmup_frac, device=device, draws=draws)
+                       warmup_frac=warmup_frac, device=device, draws=draws,
+                       bank=bank)
 
 
 def run_stream_grid(cfg, horizon: int, traced: StreamTraced, *,
                     n_reps: int = 1, seed: int = 0,
                     warmup_frac: float = 0.3, shard: bool = True,
                     timing_name: Optional[str] = None, device="cuda",
-                    draws=None):
+                    draws=None, bank=None):
     """Multi-axis grid over a :class:`StreamTraced` bundle as one batched
     run. The leaves share a leading cell axis ``(V,)`` (scalars broadcast);
     each cell runs the service with its absolute overrides of the arrival
@@ -1477,8 +1634,8 @@ def run_stream_grid(cfg, horizon: int, traced: StreamTraced, *,
     reproduces the standalone run at that value. ``shard`` is accepted for
     the reference's signature (one device); ``timing_name`` records
     ``<timing_name>.execute`` in :mod:`repro_torch.obs.timing`; ``draws``
-    replaces each cell's draws (see ``_run_points``). Returns outputs with
-    leading dims ``(V, n_reps)``."""
+    replaces each cell's draws and ``bank`` the LM embedding bank (see
+    ``_run_points``). Returns outputs with leading dims ``(V, n_reps)``."""
     cfg = _as_stream_config(cfg)
     if cfg.sharding.n_devices > 1:
         raise ValueError(
@@ -1516,7 +1673,7 @@ def run_stream_grid(cfg, horizon: int, traced: StreamTraced, *,
             hard_scale=nonneg("hard_scale", cfg.hard_scale)))
     return _run_points(cfg, horizon, points, n_reps=n_reps, seed=seed,
                        warmup_frac=warmup_frac, device=device,
-                       timing_name=timing_name, draws=draws)
+                       timing_name=timing_name, draws=draws, bank=bank)
 
 
 def _hist_percentile(hist, q, bin_s):
@@ -1625,14 +1782,17 @@ def _validate_serve_config(cfg: StreamConfig):
             "repro_torch.scenarios.compile.to_serve_config)")
 
 
-def serve_state_from_numpy(cfg, state: dict, device="cuda") -> dict:
+def serve_state_from_numpy(cfg, state: dict, device="cuda",
+                           bank=None) -> dict:
     """The port's serve state from a serve state given as numpy arrays
     (the reference's ``serve_init`` state, say): ``t``, ``step``, the
     per-shard ``seeds`` (S,) and worker state ``ws`` and ``banks`` (leading
     dim S), and with the learner ``learn`` (the seven ``LinearLearner``
     leaves), ``buf_X``, ``buf_y``, ``buf_n`` (and under
     ``uncertain_learnable`` ``learn2`` and ``buf_t``). Window and backlog
-    start empty."""
+    start empty. With LM features the state holds the embedding bank:
+    ``bank`` (2, C, K, F) if given, else the one :func:`_bank_for`
+    builds."""
     cfg = _as_serve_config(cfg)
     _validate_serve_config(cfg)
     lead = lambda d: {k: np.asarray(v)[None] for k, v in d.items()}
@@ -1646,22 +1806,27 @@ def serve_state_from_numpy(cfg, state: dict, device="cuda") -> dict:
     st = state_from_numpy(cfg, lead(state["ws"]), lead(state["banks"]),
                           np.asarray(state["seeds"])[None], device,
                           learner=learner)
-    return dict(st, t=np.float32(state["t"]), step=int(state["step"]))
+    return dict(st, t=np.float32(state["t"]), step=int(state["step"]),
+                bank=_check_bank(cfg, bank, resolve_device(device)))
 
 
-def serve_init(cfg, seed: int = 0, device="cuda") -> dict:
+def serve_init(cfg, seed: int = 0, device="cuda", bank=None) -> dict:
     """The state :func:`serve_tick` advances, on ``device``.
 
     ``cfg`` is a StreamConfig with ``serve=True`` (or a ScenarioSpec,
     lowered by ``to_serve_config``). ``seed`` fixes the worker pools and
     the counter seeds (a numpy generator, as :func:`draw_init` for one
     replication) and through them every per-tick draw, so the label stream
-    of a given injection schedule is deterministic. Returns a dict of
-    tensors plus the host clock ``t`` and tick index ``step``."""
+    of a given injection schedule is deterministic. With LM features the
+    state holds the embedding bank the ticks gather from: ``bank`` (2, C,
+    K, F) if given, else the one :func:`_bank_for` builds on ``device``.
+    Returns a dict of tensors plus the host clock ``t`` and tick index
+    ``step``."""
     cfg = _as_serve_config(cfg)
     _validate_serve_config(cfg)
     st = state_from_numpy(cfg, *draw_init(cfg, 1, seed), device)
-    return dict(st, t=np.float32(0.0), step=0)
+    return dict(st, t=np.float32(0.0), step=0,
+                bank=_check_bank(cfg, bank, resolve_device(device)))
 
 
 _SRV_SLOT = ("fin", "uid", "label", "votes")        # (S, window) integers
@@ -1684,29 +1849,59 @@ def serve_tick(cfg, state: dict, n_arr, uid_base, feat=None, labels=None):
     posterior confidence and time in system (S, window); ``dropped``,
     ``backlog``, ``in_flight``, ``stolen``, ``donated`` are per shard (S,),
     all tensors on the state's device; ``t`` is the post-tick clock (a
-    host float). ``feat`` / ``labels`` (real-text injections) need LM
-    features, which are not ported yet (ROADMAP A12b)."""
+    host float).
+
+    With LM features (``learner.feature_kind="lm"``) ``feat`` is an
+    optional (S, max_arrivals_per_tick, n_features) float array of
+    injected real-text embeddings and ``labels`` an optional (S,
+    max_arrivals_per_tick) int array of known labels, aligned with the uid
+    order; NaN feature rows and -1 labels mean "draw from the embedding
+    bank". Both must be None for Gaussian features."""
     cfg = _as_serve_config(cfg)
-    if feat is not None or labels is not None:
+    S, M = cfg.n_shards, cfg.max_arrivals_per_tick
+    lm = cfg.learner.feature_kind == "lm"
+    if lm:
+        F = cfg.learner.n_features
+        if (feat is not None and np.shape(feat) != (S, M, F)) \
+                or (labels is not None and np.shape(labels) != (S, M)):
+            raise ValueError(
+                f"serve_tick lm injections must be feat ({S}, {M}, {F}) "
+                f"and labels ({S}, {M}); got {np.shape(feat)} / "
+                f"{np.shape(labels)}")
+    elif feat is not None or labels is not None:
         raise ValueError(
             "serve_tick feat/labels injections require learner."
             "feature_kind='lm' (Gaussian tasks draw identity in the tick)")
-    S, M = cfg.n_shards, cfg.max_arrivals_per_tick
-    inj = np.stack([np.asarray(n_arr, np.int64).reshape(-1),
-                    np.asarray(uid_base, np.int64).reshape(-1)])
-    if inj.shape != (2, S):
+    rows = [np.asarray(n_arr, np.int64).reshape(-1),
+            np.asarray(uid_base, np.int64).reshape(-1)]
+    if rows[0].shape != (S,) or rows[1].shape != (S,):
         raise ValueError(f"n_arr and uid_base must be ({S},), got "
                          f"{np.shape(n_arr)} / {np.shape(uid_base)}")
-    if (inj[0] < 0).any() or (inj[0] > M).any():
+    if (rows[0] < 0).any() or (rows[0] > M).any():
         raise ValueError(f"n_arr must be in [0, max_arrivals_per_tick={M}], "
-                         f"got {inj[0].tolist()}")
+                         f"got {rows[0].tolist()}")
+    if lm and labels is not None:
+        rows.append(np.asarray(labels, np.int64).T)    # one copy with n_arr
     seeds = state["seeds"]
-    inj = torch.as_tensor(inj, device=seeds.device)
+    dev = seeds.device
+    inj = torch.as_tensor(np.concatenate([r.reshape(-1, S) for r in rows]),
+                          device=dev)
+    kw = {}
+    if lm:
+        bank = state.get("bank")
+        # a missing ``feat`` / ``labels`` is all NaN / all -1: nothing to
+        # override, so nothing is sent
+        kw = dict(
+            bank=_bank_for(cfg, dev) if bank is None else bank,
+            labels_in=inj[2:].T if labels is not None else None,
+            feat_in=(torch.as_tensor(np.asarray(feat, np.float32),
+                                     device=dev) if feat is not None
+                     else None))
     t, step, ls = state["t"], state["step"], state["learner"]
     ws, win, bl, m, train = _shard_tick(
         cfg, state["ws"], state["banks"], state["win"], state["bl"], inj[0],
         float(t), step, seeds, 0.0, _learner_tick_params(cfg, ls),
-        uid_base=inj[1])
+        uid_base=inj[1], **kw)
     if cfg.sharding.steal != "none":
         bl, got, gave = _steal_rebalance(cfg, bl)
     else:

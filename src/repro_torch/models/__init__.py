@@ -1,2 +1,3 @@
-"""The port's LM stack: parameter templates, layers, the RG-LRU block and
-the model forward (``attn`` and ``rglru`` blocks, train mode)."""
+"""The port's LM stack: parameter templates, layers, the recurrent blocks
+(RG-LRU, mLSTM, sLSTM) and the model forward (``attn``, ``rglru``,
+``mlstm`` and ``slstm`` blocks, train mode)."""

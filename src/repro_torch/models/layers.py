@@ -168,6 +168,15 @@ def gelu_tanh(x):
     return x * (0.5 * (1.0 + torch.tanh(c(0.7978845608028654) * inner)))
 
 
+def sigmoid(x):
+    """``jax.nn.sigmoid`` in x's dtype. In bfloat16 XLA rounds every op of
+    1 / (1 + exp(-x)) (``torch.sigmoid`` rounds once and differs in ~1/3
+    of the outputs); float32 takes ``torch.sigmoid`` (within an ulp)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
 def silu(x):
     """``jax.nn.silu``: x * sigmoid(x), each op in x's dtype."""
     return x * torch.sigmoid(x)

@@ -9,12 +9,13 @@ non-tiling remainder (recurrentgemma's 26 = 8 * 3 + 2) and runs unrolled.
 Float32 master parameters are cast to bfloat16 at use; norms, softmax and
 the recurrence compute in float32 inside.
 
-Ported: the ``attn`` and ``rglru`` blocks and ``forward(mode="train")``
-with ``logits_mode`` hidden, all or last, and ``remat`` (each stacked
-group's body under ``torch.utils.checkpoint``, the counterpart of the
-reference's ``jax.checkpoint(group_body)``). Not yet: ``prefill`` /
-``decode`` and their caches, the ``mlstm``, ``slstm``, ``moe`` and
-``xattn`` blocks and the encoder-decoder; they raise
+Ported: the ``attn``, ``rglru``, ``mlstm`` and ``slstm`` blocks
+(recurrentgemma-2b and xlstm-125m) and ``forward(mode="train")`` with
+``logits_mode`` hidden, all or last, ``mlstm_impl`` chunked or seq, and
+``remat`` (each stacked group's body under ``torch.utils.checkpoint``, the
+counterpart of the reference's ``jax.checkpoint(group_body)``). Not yet:
+``prefill`` / ``decode`` and their caches (ROADMAP A12c), the ``moe`` and
+``xattn`` blocks and the encoder-decoder (A12d); they raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -29,26 +30,31 @@ from repro_torch.models.params import (
     PSpec, leaves, tree_map, tree_stack_template, with_leaves,
 )
 
-BLOCK_KINDS = ("attn", "rglru")
+BLOCK_KINDS = ("attn", "rglru", "mlstm", "slstm")
 
 
 def _check_kind(kind):
     if kind not in BLOCK_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (the port runs "
-            f"{', '.join(BLOCK_KINDS)})")
+            f"block kind {kind!r} is not ported yet (ROADMAP A12d; the "
+            f"port runs {', '.join(BLOCK_KINDS)})")
 
 
 def block_template(cfg, kind):
     _check_kind(kind)
     if kind == "attn":
         return {"attn": L.attn_template(cfg), "mlp": L.mlp_template(cfg)}
+    if kind == "mlstm":
+        return {"mlstm": R.mlstm_template(cfg)}
+    if kind == "slstm":
+        return {"slstm": R.slstm_template(cfg)}
     return {"rglru": R.rglru_template(cfg), "mlp": L.mlp_template(cfg)}
 
 
 def model_template(cfg):
     if cfg.is_encoder_decoder:
-        raise NotImplementedError("the encoder-decoder is not ported yet")
+        raise NotImplementedError("the encoder-decoder is not ported yet "
+                                  "(ROADMAP A12d)")
     group, n_full, rem = cfg.layer_groups()
     t = {
         "embed": PSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
@@ -76,9 +82,21 @@ def _self_attention(p, x, cfg):
     return x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
 
-def apply_block(p, kind, x, cfg):
-    """One block in train mode (no cache). Returns x."""
+def apply_block(p, kind, x, cfg, mlstm_impl="chunked"):
+    """One block in train mode (no cache) from the empty state. Returns x.
+    The xLSTM blocks are pre-norm with a residual and no MLP;
+    ``mlstm_impl`` picks the mLSTM's form (``"chunked"`` or the sequential
+    oracle ``"seq"``)."""
     _check_kind(kind)
+    if kind in ("mlstm", "slstm"):
+        h = L.apply_norm(p[kind]["norm"], x, cfg.norm, cfg.norm_eps)
+        if kind == "mlstm":
+            st = R.mlstm_init_state(cfg, x.shape[0], device=x.device)
+            y, _ = R.apply_mlstm(p["mlstm"], h, st, cfg, impl=mlstm_impl)
+        else:
+            st = R.slstm_init_state(cfg, x.shape[0], device=x.device)
+            y, _ = R.apply_slstm(p["slstm"], h, st, cfg)
+        return x + y
     if kind == "attn":
         x = _self_attention(p["attn"], x, cfg)
     else:
@@ -105,42 +123,44 @@ def _unstack(groups, n):
     return [with_leaves(groups, [p[gi] for p in parts]) for gi in range(n)]
 
 
-def _group_body(x, gp, group, cfg):
+def _group_body(x, gp, group, cfg, mlstm_impl):
     for i, kind in enumerate(group):
-        x = apply_block(gp[i], kind, x, cfg)
+        x = apply_block(gp[i], kind, x, cfg, mlstm_impl)
     return x
 
 
 def forward(params, cfg, tokens, *, mode="train", logits_mode="all",
-            remat=False):
+            remat=False, mlstm_impl="chunked"):
     """tokens (B, S) int -> hidden states (B, S, d) float32
     (``logits_mode="hidden"``) or logits (B, S, V) / (B, 1, V) float32
     (``"all"`` / ``"last"``). Train mode only: positions are the index.
     ``remat`` recomputes each stacked group in the backward instead of
-    keeping its activations (the same numbers either way); a backward
+    keeping its activations (the same numbers either way); ``mlstm_impl``
+    is the mLSTM's form (``"chunked"``, or the sequential oracle
+    ``"seq"``), as in the reference. A backward
     through it runs outside this function, so callers wrap it in
     :func:`repro_torch.device.full_fp32` as well."""
     if mode != "train":
         raise NotImplementedError(f"forward mode {mode!r} (prefill/decode "
-                                  "caches) is not ported yet")
+                                  "caches) is not ported yet (ROADMAP A12c)")
     if logits_mode not in ("all", "last", "hidden"):
         raise ValueError(f"logits_mode must be all, last or hidden, got "
                          f"{logits_mode!r}")
     if cfg.is_encoder_decoder or cfg.cross_attn_every:
         raise NotImplementedError("cross-attention models are not ported "
-                                  "yet")
+                                  "yet (ROADMAP A12d)")
     group, n_full, rem = cfg.layer_groups()
     params = compute_params(params)
     with full_fp32():
         x = params["embed"][tokens.long()].to(torch.bfloat16)
         for gp in _unstack(params["groups"], n_full):
             if remat:
-                x = checkpoint(_group_body, x, gp, group, cfg,
+                x = checkpoint(_group_body, x, gp, group, cfg, mlstm_impl,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = _group_body(x, gp, group, cfg)
+                x = _group_body(x, gp, group, cfg, mlstm_impl)
         for i, kind in enumerate(rem):
-            x = apply_block(params["tail"][i], kind, x, cfg)
+            x = apply_block(params["tail"][i], kind, x, cfg, mlstm_impl)
         x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
         if logits_mode == "hidden":
             return x.to(torch.float32)

@@ -384,14 +384,12 @@ _seed_grids()
 # ---------------------------------------------------------------------------
 
 def list_stream_configs() -> list:
-    """Sorted names of the simulator stream workloads the port runs: every
-    registered scenario of the stream engine but those with LM task features
-    (ROADMAP A12b) and the live-serving ones, which carry a serve sub-spec
-    of their own and whose arrival process is nominal (they run through
-    ``serve_tick``)."""
+    """Sorted names of the simulator stream workloads: every registered
+    scenario of the stream engine but the live-serving ones, which carry a
+    serve sub-spec of their own and whose arrival process is nominal (they
+    run through ``serve_tick``)."""
     return [n for n in list_scenarios()
             if "stream" in engines(spec := _REGISTRY[n])
-            and spec.features.kind == "gaussian"
             and spec.serve == ServeSpec()]
 
 

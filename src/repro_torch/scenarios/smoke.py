@@ -37,8 +37,6 @@ def unported(spec, engine: str):
     runs it."""
     if engine == "events":
         return "A9"
-    if engine == "stream" and spec.features.kind == "lm":
-        return "A12b"
     return None
 
 

@@ -20,13 +20,16 @@ holds at every tick boundary.
 Endpoints (JSON in/out):
 
   ``POST /tasks``          submit one task; body ``{"wait": bool,
-                           "timeout_s": float}`` optional. ``wait`` long-
-                           polls until the label finalizes or the timeout
-                           fires (the TASK stays in the system; only the
-                           HTTP wait times out). The reference's LM-text
-                           fields (``"text"``, ``"label"``) need LM
-                           features, which are not ported (ROADMAP A12b):
-                           they get a 400.
+                           "timeout_s": float, "text": str, "label": int}``
+                           optional. ``wait`` long-polls until the label
+                           finalizes or the timeout fires (the TASK stays
+                           in the system; only the HTTP wait times out).
+                           On an LM scenario (``features.kind="lm"``)
+                           ``text`` is embedded on the server's device
+                           (one ``embed_texts`` call a tick for the tick's
+                           texts) and ``label`` in [0, C) is the task's
+                           known true label (-1: none); elsewhere either
+                           gets a 400.
   ``GET /labels/<id>``     current state of a submission.
   ``GET /stats``           counters, conservation check, wall-clock
                            latency percentiles, ``repro_torch.obs.timing``
@@ -61,6 +64,8 @@ class _Req:
     status: str = "pending"
     shard: int = -1
     uid: int = -1
+    text: Optional[str] = None    # LM scenarios: embedded, then injected
+    given_label: int = -1         # LM scenarios: the known label, or -1
     label: Optional[int] = None
     conf: float = 0.0
     votes: int = 0
@@ -113,6 +118,10 @@ class LabelServer:
         self.seed = seed
 
         S = self.cfg.n_shards
+        # LM scenarios take real text: a tick embeds its texted
+        # submissions in one batch and injects them beside the simulated
+        # identities (NaN feature rows: "draw from the bank")
+        self._lm = self.cfg.learner.feature_kind == "lm"
         self.state = None
         self._pending: collections.deque = collections.deque()
         self._reqs: dict = {}
@@ -205,11 +214,15 @@ class LabelServer:
     def _inject_plan(self):
         """Micro-batch pending submissions into per-shard injection counts,
         least-loaded shard first, throttled to ``min(free backlog slots,
-        max_arrivals_per_tick)`` per shard so the device cannot drop."""
+        max_arrivals_per_tick)`` per shard so the device cannot drop.
+        Returns ``(n_arr, uid_base, inject)``, ``inject`` the ``(shard,
+        arrival index, request)`` of the LM submissions that carry text or
+        a label."""
         cfg = self.cfg
         S, M, Q = cfg.n_shards, cfg.max_arrivals_per_tick, cfg.backlog
         n_arr = np.zeros((S,), np.int64)
         room = np.minimum(M, Q - self._backlog)
+        inject = []
         while self._pending:
             s = int(np.argmax(room - n_arr))
             if room[s] - n_arr[s] <= 0:
@@ -219,29 +232,65 @@ class LabelServer:
             req.uid = int(self._next_uid[s]) + int(n_arr[s])
             req.status = "queued"
             self._by_uid[(s, req.uid)] = req
+            if self._lm and (req.text is not None or req.given_label >= 0):
+                inject.append((s, int(n_arr[s]), req))
             n_arr[s] += 1
         uid_base = self._next_uid.copy()
         self._next_uid += n_arr
-        return n_arr, uid_base
+        return n_arr, uid_base, inject
 
-    def _device_tick(self, n_arr, uid_base):
+    def _device_tick(self, n_arr, uid_base, inject=()):
         """One serve tick and the copy of its outputs to the host (runs on
         the executor thread; wall clock lands in the
         ``repro_torch.obs.timing`` registry, so the first call's one-time
-        costs show up as the cold-vs-warm split)."""
+        costs show up as the cold-vs-warm split). On an LM scenario the
+        tick's texted submissions are embedded first (``serve.embed``)."""
         from repro_torch.labelstream.router import (
             serve_out_numpy, serve_tick,
         )
         from repro_torch.obs import timing
 
+        feat = labels = None
+        if inject:
+            with self._on_device():
+                feat, labels = self._embed_plan(inject)
+
         def step():
             with self._on_device():
                 self.state, out = serve_tick(self.cfg, self.state, n_arr,
-                                             uid_base)
+                                             uid_base, feat=feat,
+                                             labels=labels)
                 return serve_out_numpy(out)
 
         out, _ = timing.timeit("serve.tick", step)
         return out
+
+    def _embed_plan(self, inject):
+        """The tick's LM injections: ``feat`` (S, M, F) float32 with NaN
+        rows meaning "draw from the bank" and ``labels`` (S, M) with -1
+        meaning "draw". The texts are embedded in one
+        :func:`repro_torch.embed.bank.embed_texts` call on the server's
+        device, into the bank's standardized feature space."""
+        from repro_torch.embed.bank import embed_texts
+        from repro_torch.obs import timing
+
+        cfg = self.cfg
+        L = cfg.learner
+        S, M = cfg.n_shards, cfg.max_arrivals_per_tick
+        feat = np.full((S, M, L.n_features), np.nan, np.float32)
+        labels = np.full((S, M), -1, np.int64)
+        texted = [(s, w, r) for s, w, r in inject if r.text is not None]
+        if texted:
+            vecs, _ = timing.timeit("serve.embed", lambda: embed_texts(
+                L.embed, [r.text for _, _, r in texted], cfg.n_classes,
+                L.n_features, L.class_sep, L.hard_sep_scale,
+                device=self.device).cpu().numpy())
+            for (s, w, _), v in zip(texted, vecs):
+                feat[s, w] = v
+        for s, w, r in inject:
+            if r.given_label >= 0:
+                labels[s, w] = r.given_label
+        return feat, labels
 
     def _absorb(self, out, n_arr, uid_base):
         now = time.monotonic()
@@ -286,9 +335,9 @@ class LabelServer:
                 self._work.clear()
                 await self._work.wait()
             t0 = time.monotonic()
-            n_arr, uid_base = self._inject_plan()
+            n_arr, uid_base, inject = self._inject_plan()
             out = await loop.run_in_executor(
-                None, self._device_tick, n_arr, uid_base)
+                None, self._device_tick, n_arr, uid_base, inject)
             self._absorb(out, n_arr, uid_base)
             if self._closing and not self._pending and not self._by_uid:
                 self._drained.set()
@@ -372,8 +421,16 @@ class LabelServer:
                 raise ValueError("body must be a JSON object")
         except ValueError as e:       # json.JSONDecodeError included
             return 400, dict(error=str(e))
-        if payload.get("text") is not None \
-                or payload.get("label", -1) != -1:
+        text = payload.get("text")
+        label = payload.get("label", -1)
+        if text is not None and not isinstance(text, str):
+            return 400, dict(error='"text" must be a string')
+        if not isinstance(label, int) or isinstance(label, bool) \
+                or not -1 <= label < self.cfg.n_classes:
+            return 400, dict(
+                error=f'"label" must be an int in [0, {self.cfg.n_classes})'
+                      ' or -1')
+        if not self._lm and (text is not None or label >= 0):
             return 400, dict(
                 error='"text"/"label" need an LM scenario '
                       '(features.kind="lm"); this server runs '
@@ -384,7 +441,7 @@ class LabelServer:
             self.rejected += 1
             return 429, dict(error="admission queue full")
         req = _Req(rid=self._next_rid, event=asyncio.Event(),
-                   t_submit=time.monotonic())
+                   t_submit=time.monotonic(), text=text, given_label=label)
         self._next_rid += 1
         self._reqs[req.rid] = req
         self._pending.append(req)
@@ -429,7 +486,7 @@ class LabelServer:
             p50_latency_s=float(np.percentile(lat, 50)) if lat.size else None,
             p95_latency_s=float(np.percentile(lat, 95)) if lat.size else None,
             timing=[row for row in timing.summary()
-                    if row["name"] == "serve.tick"],
+                    if row["name"] in ("serve.tick", "serve.embed")],
             device=str(self.device),
         )
 
@@ -486,10 +543,15 @@ class ServeClient:
             await self.aclose()
         return status, (json.loads(data) if data else None)
 
-    async def submit(self, *, wait: bool = False, timeout_s: float = None):
+    async def submit(self, *, wait: bool = False, timeout_s: float = None,
+                     text: str = None, label: int = None):
         obj = {"wait": wait}
         if timeout_s is not None:
             obj["timeout_s"] = timeout_s
+        if text is not None:
+            obj["text"] = text
+        if label is not None:
+            obj["label"] = label
         return await self.request("POST", "/tasks", obj)
 
     async def label(self, rid: int):

@@ -603,3 +603,56 @@ def test_linear_scan_wrapper_runs_its_route_plain_version(B, S, D):
     assert (linear_scan.launches, linear_scan.bwd_launches,
             linear_scan.chunked_launches,
             linear_scan.chunked_bwd_launches) == before
+
+
+# ------------------------------------------------- ops and margin_ref ----
+
+def _ops_inputs(op, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    if op == "attention":
+        return (f(2, 4, 48, 32), f(2, 2, 48, 32), f(2, 2, 48, 32)), \
+            dict(causal=True, window=16)
+    if op == "linear_scan":
+        return (rng.uniform(0.5, 1.0, (2, 40, 24)).astype(np.float32),
+                f(2, 40, 24), f(2, 24)), {}
+    if op == "entropy_scores":
+        return (f(33, 10) * 3,), {}
+    return (f(33, 100), rng.integers(0, 100, 33).astype(np.int32)), {}
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref"])
+@pytest.mark.parametrize("op", ["attention", "linear_scan", "entropy_scores",
+                                "streaming_xent"])
+def test_ops_impl_dispatchers_match_reference_oracles(op, impl):
+    """``kernels.ops``'s ``impl`` dispatchers (reference ops.py:26-49): on
+    CPU tensors both ``impl="auto"`` (the wrapper, its plain version here)
+    and ``impl="ref"`` match the reference's jnp oracle, at float32's 2e-5
+    (20x for the scan, as its oracle test allows); any other impl
+    raises."""
+    from repro.kernels import ops as jops
+    args, kw = _ops_inputs(op, 3)
+    want = np.asarray(getattr(jops, op)(*(jnp.asarray(a) for a in args),
+                                        impl="ref", **kw))
+    got = getattr(ops, op)(*(torch.from_numpy(a) for a in args), impl=impl,
+                           **kw)
+    tol = 4e-4 if op == "linear_scan" else 2e-5
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="impl"):
+        getattr(ops, op)(*(torch.from_numpy(a) for a in args), impl="tpu",
+                         **kw)
+
+
+def test_margin_ref_matches_reference():
+    """``kernels.ref.margin_ref`` (reference ref.py:50): top-1 minus top-2
+    softmax probability, float32 and bfloat16 logits."""
+    from repro_torch.kernels.ref import margin_ref
+    x = np.random.default_rng(4).normal(size=(3, 17, 9)).astype(np.float32)
+    for bf16 in (False, True):
+        xj, xt = jnp.asarray(x), torch.from_numpy(x)
+        if bf16:
+            xj, xt = xj.astype(jnp.bfloat16), xt.to(torch.bfloat16)
+        got = margin_ref(xt)
+        assert got.dtype == torch.float32 and got.shape == (3, 17)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jref.margin_ref(
+            xj)), rtol=2e-6, atol=2e-6)

@@ -462,8 +462,8 @@ def test_forward_last_logits_and_unported_kinds():
     assert torch.equal(last[:, 0], full[:, -1])
     with pytest.raises(NotImplementedError):
         tm.forward(tp, tcfg, toks, mode="decode")
-    with pytest.raises(NotImplementedError):
-        tm.model_template(reduced(get_config("xlstm-125m")))
+    with pytest.raises(NotImplementedError, match="A12d"):
+        tm.model_template(reduced(get_config("granite-moe-3b-a800m")))
     with pytest.raises(NotImplementedError):
         tm.model_template(reduced(get_config("whisper-base")))
 

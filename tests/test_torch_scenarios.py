@@ -263,8 +263,9 @@ def test_trace_and_events_raise_naming_their_item():
     assert dataclasses.asdict(T.to_stream_config(traced)) == \
         dataclasses.asdict(J.to_stream_config(J.override(
             J.get_scenario("stream_default"), {"trace.enabled": True})))
-    with pytest.raises(NotImplementedError, match="A12b"):
-        T.run(T.get_scenario("lm_stream"), horizon=2, device="cpu")
+    lm = T.run(T.get_scenario("lm_stream"), horizon=4, device="cpu")
+    assert lm["config"].learner.feature_kind == "lm"
+    assert lm["raw"]["series"]["arrivals"].shape == (1, 4)
     with pytest.raises(NotImplementedError, match="A13"):
         T.run(T.override(T.get_scenario("stream_sharded"),
                          {"sharding.n_devices": 2}), horizon=2,
@@ -405,7 +406,6 @@ def test_registry_smoke_on_the_cpu(capsys):
     assert "[FAIL]" not in out
     todo = sorted(line.split()[1] + "/" + line.split()[2]
                   for line in out.splitlines() if line.startswith("[TODO]"))
-    assert todo == ["hybrid_small/events", "lm_chance_hard/stream",
-                    "lm_stream/stream", "smallR1/events",
+    assert todo == ["hybrid_small/events", "smallR1/events",
                     "throughput_v3_pm/events"]
-    assert out.count("[ ok ]") == 15
+    assert out.count("[ ok ]") == 17

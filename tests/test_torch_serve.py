@@ -240,8 +240,21 @@ def test_serve_entry_points_validate():
         tr.serve_init(tr.StreamConfig(), device="cpu")
     with pytest.raises(ValueError, match="live-injection mode"):
         tr.run_stream(cfg, 5, device="cpu")
-    with pytest.raises(NotImplementedError, match="lm"):
-        tr.serve_init(get_scenario("lm_stream"), device="cpu")
+    lm = to_serve_config(get_scenario("lm_stream"))
+    st = tr.serve_init(lm, device="cpu")
+    assert st["bank"].shape == (2, 2, 16, 8) and st["bank"].device.type \
+        == "cpu"
+    S, M, F = lm.n_shards, lm.max_arrivals_per_tick, lm.learner.n_features
+    with pytest.raises(ValueError, match="lm injections"):
+        tr.serve_tick(lm, st, np.zeros(S), np.zeros(S),
+                      feat=np.zeros((S, M, F + 1)))
+    with pytest.raises(ValueError, match="lm injections"):
+        tr.serve_tick(lm, st, np.zeros(S), np.zeros(S),
+                      labels=np.zeros((S, M - 1)))
+    st, out = tr.serve_tick(lm, st, np.ones(S), np.zeros(S),
+                            feat=np.full((S, M, F), np.nan),
+                            labels=np.full((S, M), -1))
+    assert int(out["backlog"].sum() + out["in_flight"].sum()) == S
 
 
 def test_serve_init_defaults_to_the_card(monkeypatch):

@@ -178,8 +178,9 @@ def test_shutdown_endpoint_and_503_while_closing():
 
 
 def test_rejects_bad_requests():
-    """400 on malformed JSON and on LM-only fields, 404 on unknown routes
-    and ids; none of these enter the ledger."""
+    """400 on malformed JSON and on LM-only fields (accepted on an LM
+    scenario), 404 on unknown routes and ids; none of the refused ones
+    enter the ledger."""
     async def main():
         srv = await _server().start()
         out = {}
@@ -203,11 +204,22 @@ def test_rejects_bad_requests():
         await srv.close()
         return out, stats
 
+    async def lm():
+        srv = await LabelServer(get_scenario("lm_stream"), seed=0, port=0,
+                                tick_interval_s=0.0, device="cpu").start()
+        c = await ServeClient(srv.host, srv.port).connect()
+        got = [(await c.submit(text="hello", label=1))[0],
+               (await c.submit(label=0))[0]]
+        await c.aclose()
+        await srv.close(drain=False)
+        return got
+
     out, stats = _run(main())
     assert out == {"bad_json": 400, "no_route": 404, "bad_id": 404,
                    "not_int_id": 400, "text": 400, "label": 400,
                    "array": 400}
     assert stats["submitted"] == 0 and stats["conservation"] is True
+    assert _run(lm()) == [202, 202]
 
 
 def test_admission_queue_bound_returns_429():
@@ -236,5 +248,6 @@ def test_server_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LabelServer(get_scenario("serve_default"))
-    with pytest.raises(NotImplementedError, match="lm"):
-        LabelServer(get_scenario("lm_stream"), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LabelServer(get_scenario("lm_stream"))
+    assert LabelServer(get_scenario("lm_stream"), device="cpu")._lm

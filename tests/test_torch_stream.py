@@ -42,6 +42,8 @@ FIFO = ["stream_default", "stream_batch_replay", "skewed_fixed5",
 NAMES = FIFO + ["skewed_learner_fused", "heterogeneous_pool",
                 "heterogeneous_routed", "bursty_admission",
                 "bursty_admission_uncertain", "chance_hard", "stream_sharded"]
+# the LM-featured workloads, held in tests/test_torch_lm_stream.py
+LM = ["lm_stream", "lm_chance_hard"]
 REFRESH = {"refresh_every": 40, "refresh_iters": 6}
 H, N = 200, 2
 
@@ -128,14 +130,15 @@ def _assert_summaries_match(got, want):
 
 
 def test_registry_configs_match_reference():
-    assert list_stream_configs() == sorted(NAMES)
-    for name in NAMES:
+    assert list_stream_configs() == sorted(NAMES + LM)
+    for name in NAMES + LM:
         want = dataclasses.asdict(_ref_cfg(name))
         got = dataclasses.asdict(get_stream_config(name))
         assert got == want, name
     assert get_stream_config("skewed_adaptive5", REFRESH).refresh_every == 40
+    assert get_stream_config("lm_stream").learner.feature_kind == "lm"
     with pytest.raises(KeyError):
-        get_stream_config("lm_stream")
+        get_stream_config("serve_default")
 
 
 @pytest.mark.parametrize("name,overrides", [(n, None) for n in FIFO]
@@ -161,7 +164,7 @@ def test_stream_matches_reference_with_injected_draws(name, overrides):
 
 @pytest.mark.parametrize("change,err", [
     (dict(learner=StreamLearnerConfig(enabled=True, feature_kind="lm")),
-     NotImplementedError),
+     ValueError),
     (dict(trace=object()), TypeError),
     (dict(sharding=ShardingConfig(n_devices=2)), NotImplementedError),
     (dict(serve=True), ValueError),
