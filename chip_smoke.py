@@ -106,7 +106,7 @@ drives the port's main path on the card:
      and (b);
  15. the scenario front door and the live serve path: (a) the registry
      smoke (``repro_torch.scenarios.smoke``) on the card, every (scenario,
-     ported engine) pair, the pairs not ported yet listed as ``[TODO]``;
+     engine) pair;
      (b) ``serve_tick`` driven directly for 300 ticks on
      ``serve_default``, ``stream_sharded`` and ``chance_hard`` with
      ``uncertain_learnable`` admission, injections steering each shard's
@@ -149,7 +149,30 @@ drives the port's main path on the card:
      per tick; (c) live text over HTTP: 8 clients x 32 text submissions to
      ``lm_stream`` at full width, a quarter with a known label, every one
      answered; answered tasks per second, p50 / p95 wall latency and the
-     ``embed_texts`` time per tick.
+     ``embed_texts`` time per tick;
+ 18. the grid and the event-loop engine: (a) ``run_grid`` on
+     ``paper_stream`` (24 cells in 2 classes, 64 replications x 240 ticks,
+     each class one batched run of 12 cells x 64 replications): the first
+     cell of each class and a cell below its class's largest votes cap
+     equal to their standalone ``scenarios.run`` (integers equal, floats
+     within 1e-6 relative); cells per second, the batched time against
+     the standalone runs', kernels per tick of a class (a profiled 40-tick
+     window); (b) ``run_grid`` on ``paper_fast`` (18 cells in 2 classes,
+     256 replications), the first cell of each class equal to its
+     standalone run; (c) ``python -m repro_torch.grid grid_smoke_stream
+     --n-reps 4 --horizon 240`` in a subprocess, its artifact read back
+     (6 cells, 1 class, ``compile_s`` null); (d) the scalar event loop:
+     ``smallR1`` x 8 and ``throughput_v3_pm`` x 2 through ``scenarios.run(
+     engine="events")`` equal to the CPU in every ``LabelResult`` field;
+     the quality-maintenance run (pool 12, 3 votes, 240 tasks, threshold
+     0.72) twice, bit for bit, its evictions equal to the CPU's, 10
+     ``ds_estep`` launches per EM, all on the task route, one E-step at
+     the sweep's shape against the plain version and timed; ``run_learning
+     ("hybrid_small", engine="events")`` twice, bit for bit, one
+     ``entropy_scores`` launch per batch, every selection equal to the
+     plain entropy's on the same model and to a card run on the plain
+     entropy; the entropy at the selection's (400, 2) timed beside its
+     bound, the plain version and ``Categorical.entropy``.
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -160,7 +183,8 @@ With ``--launch-times SRC`` it only prints the per-call times of
 shapes through the package under SRC (another commit's ``src`` unpacked
 beside this one, say), to compare two launch paths in turns in one run.
 With ``--phase17`` it runs only the registry smoke and phase 17 (no kernel
-build: the LM stream launches none); with ``--lm-depth`` only the
+build: the LM stream launches none); with ``--phase18`` only the registry
+smoke, the build of ``ds_estep`` and ``entropy`` and phase 18; with ``--lm-depth`` only the
 full-width xlstm-125m forward on the card against the CPU, group by group,
 in bfloat16 and float32, beside the forward's own response to a one-ulp
 move of its input (how far bfloat16 rounding alone carries with depth).
@@ -1445,6 +1469,369 @@ def lm_stream_phase(card: str):
     return res
 
 
+def grid_events_phase(card: str) -> dict:
+    """Phase 18: the grid engine and the scalar event-loop engine on the card
+    (see the module docstring); fails at the first check that does not
+    hold. Returns the ``ds_estep`` and ``entropy_scores`` numbers on the
+    events path for the ``kernels`` line."""
+    import functools
+    import os
+    import tempfile
+    from repro_torch import grid as rgrid
+    from repro_torch import scenarios as scen
+    from repro_torch.core import clamshell as ccs
+    from repro_torch.core import quality as cquality
+    from repro_torch.core.lifeguard import LifeGuard
+    from repro_torch.core.workers import Population
+    from repro_torch.kernels.ds_estep import ds_estep, estep_route
+    from repro_torch.kernels.ref import ds_estep_ref, entropy_ref
+    from repro_torch.kernels.uncertainty import entropy_scores
+    from repro_torch.labelstream import aggregate
+    from repro_torch.learning import compat, linear
+    from repro_torch.obs.export import read_grid
+
+    dev = torch.device("cuda")
+    asdict = dataclasses.asdict
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) paper_stream: 24 cells in 2 classes, each class one batched run
+    Ha, Na = 240, 64
+    g = scen.get_grid("paper_stream")
+    _, cells, classes = rgrid.partition_grid(g)
+    check(len(cells) == 24 and len(classes) == 2,
+          f"[grid a] paper_stream partitions into {len(classes)} classes")
+    res, grid_s = timed(lambda: rgrid.run_grid(
+        g, n_reps=Na, horizon=Ha, keep_raw=True, device="cuda"))
+    check(res["n_classes"] == 2 and all(c["batched"] and c["compile_s"] is
+                                        None for c in res["classes"]),
+          "[grid a] a paper_stream class did not run batched")
+    cap = {f: spec.policy.redundancy.votes for f, (_, _, spec)
+           in enumerate(cells)}
+    top = max(cap[f] for f in classes[1].cells)
+    picks = [classes[0].cells[0], classes[1].cells[0],
+             next(f for f in classes[1].cells if 1 < cap[f] < top)]
+    alone_s, rel = [], 0.0
+    for f in picks:
+        one, s = timed(lambda f=f: scen.run(cells[f][2], n_reps=Na,
+                                            horizon=Ha, device="cuda"))
+        alone_s.append(s)
+        rel = max(rel, hold_point(f"[grid a] cell {f} {cells[f][1]}",
+                                  res["cells"][f]["raw"], one["raw"]))
+    per_cell = sum(alone_s) / len(alone_s)
+    exe = [c["execute_s"] for c in res["classes"]]
+    shards = scen.to_stream_config(g.base).n_shards
+    say(f"[grid a] paper_stream: 24 cells x {Na} reps x {Ha} ticks in 2 "
+        f"batched runs ({len(classes[0].cells)} + {len(classes[1].cells)} "
+        f"cells x {Na} reps = {len(classes[0].cells) * Na} rows x {shards} "
+        f"shards each): {grid_s:.2f} s ({24 / grid_s:.2f} cells/s), class execute "
+        f"{', '.join(f'{e:.2f}' for e in exe)} s; standalone runs of cells "
+        f"{picks} {', '.join(f'{s:.2f}' for s in alone_s)} s, so 24 "
+        f"standalone runs ~{24 * per_cell:.1f} s ({24 * per_cell / grid_s:.2f}"
+        f"x the grid); those cells equal their standalone runs (integers "
+        f"equal, floats max rel {rel:.3g}; cell {picks[2]} at cap "
+        f"{cap[picks[2]]} below the class's {top}); {card}")
+    del res
+    sub = scen.GridSpec(base=g.base, name="paper_stream_class0", axes=(
+        ("policy.straggler.enabled", (False,)),) + tuple(
+        (p, v) for p, v in g.axes if p != "policy.straggler.enabled"))
+    Hp = 40
+    wall, n_k, busy, _ = device_profile(lambda: rgrid.run_grid(
+        sub, n_reps=Na, horizon=Hp, device="cuda"))
+    if n_k:
+        say(f"[profile] paper_stream class 0 (12 cells x {Na} reps) {Hp} "
+            f"ticks: {n_k / Hp:.0f} kernels per tick, device busy "
+            f"{busy / Hp:.0f} us per tick; device idle "
+            f"{(1 - busy * 1e-6 / wall) * 100:.1f}% of the profiled window; "
+            f"{card}")
+    else:
+        say("[profile] paper_stream class 0: device time not measured")
+
+    # (b) paper_fast: 18 cells in 2 classes on the batch engine
+    Nb = 256
+    gf = scen.get_grid("paper_fast")
+    _, fcells, fclasses = rgrid.partition_grid(gf)
+    resf, fast_s = timed(lambda: rgrid.run_grid(gf, n_reps=Nb, keep_raw=True,
+                                                device="cuda"))
+    check(resf["n_cells"] == 18 and resf["n_classes"] == 2
+          and all(c["batched"] for c in resf["classes"]),
+          "[grid b] paper_fast did not run as 2 batched classes")
+    rel, fast_alone = 0.0, []
+    for cls in fclasses:
+        f = cls.cells[0]
+        one, s = timed(lambda f=f: scen.run(fcells[f][2], "simfast",
+                                            n_reps=Nb, device="cuda"))
+        fast_alone.append(s)
+        rel = max(rel, hold_point(f"[grid b] cell {f} {fcells[f][1]}",
+                                  resf["cells"][f]["raw"], one["raw"]))
+    exe = ", ".join(f"{c['execute_s']:.2f}" for c in resf["classes"])
+    say(f"[grid b] paper_fast: 18 cells x {Nb} reps in 2 batched runs: "
+        f"{fast_s:.2f} s ({18 / fast_s:.2f} cells/s), class execute {exe} s; "
+        f"the first cell of each class equals its standalone run "
+        f"({', '.join(f'{s:.2f}' for s in fast_alone)} s; integers equal, "
+        f"floats max rel {rel:.3g}); {card}")
+    del resf
+
+    # (c) the command line in a subprocess, read back
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "GRID_grid_smoke_stream.jsonl"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.grid", "grid_smoke_stream",
+             "--n-reps", "4", "--horizon", "240", "--out", str(path)],
+            env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[grid c] the grid CLI failed: "
+              f"{proc.stdout[-600:]} {proc.stderr[-1200:]}")
+        doc = read_grid(str(path))
+        check(len(doc["cell"]) == 6 and len(doc["class"]) == 1
+              and doc["class"][0]["compile_s"] is None,
+              "[grid c] the artifact does not read back as 6 cells, 1 class")
+    for line in proc.stdout.strip().splitlines():
+        say(f"[grid c]   {line}")
+    say(f"[grid c] python -m repro_torch.grid grid_smoke_stream --n-reps 4 "
+        f"--horizon 240 in a subprocess: {cli_s:.1f} s with start-up; the "
+        f"artifact read back with 6 cells, 1 class, compile_s null")
+
+    # (d) the events engine: labeling on the card equals the CPU
+    for name, n in (("smallR1", 8), ("throughput_v3_pm", 2)):
+        spec = scen.get_scenario(name)
+        card_run, s = timed(lambda: scen.run(spec, "events", n_reps=n,
+                                             device="cuda"))
+        cpu_run = scen.run(spec, "events", n_reps=n, device="cpu")
+        diff = [i for i, (a, b) in enumerate(zip(card_run["raw"],
+                                                  cpu_run["raw"]))
+                if asdict(a) != asdict(b)]
+        check(not diff and len(card_run["raw"]) == n,
+              f"[events d] {name}: replications {diff} differ from the CPU")
+        m = card_run["metrics"]
+        say(f"[events d] {name} x {n} replications ({spec.n_tasks} tasks "
+            f"each): {s:.2f} s ({s / n:.3f} s a replication); every "
+            f"LabelResult field equal to the CPU run; mean latency "
+            f"{m['mean_latency']:.1f} s, total {m['total_time']:.1f} s, "
+            f"accuracy {m['accuracy']:.3f}; {card}")
+
+    # the quality-maintenance run: Dawid-Skene EM at every batch boundary
+    truth = np.random.default_rng(0).integers(0, 2, 240)
+
+    def quality(device):
+        cs = ccs.ClamShell(ccs.CSConfig(
+            pool_size=12, straggler=True, votes_needed=3,
+            quality_threshold=0.72, seed=13),
+            population=Population(seed=21, acc_a=4.0, acc_b=1.6),
+            device=device)
+        return cs, cs.run_labeling(240, true_labels=truth)
+
+    n_em, shapes = [0], []
+    real_em, real_estep = cquality.em_worker_accuracy, aggregate.ds_estep
+
+    def count_em(*a, **kw):
+        n_em[0] += 1
+        return real_em(*a, **kw)
+
+    def spy_estep(rows, idx, **kw):
+        shapes.append((tuple(rows.shape), tuple(idx.shape)))
+        return real_estep(rows, idx, **kw)
+    cquality.em_worker_accuracy = count_em
+    aggregate.ds_estep = spy_estep
+    try:
+        cpu_cs, cpu_r = quality("cpu")
+    finally:
+        aggregate.ds_estep = real_estep
+    try:
+        n_em[0] = 0
+        ds_estep.launches = ds_estep.task_launches = 0
+        (cs1, r1), q_s = timed(lambda: quality("cuda"))
+        q_launches, q_task, ems = (ds_estep.launches, ds_estep.task_launches,
+                                   n_em[0])
+    finally:
+        cquality.em_worker_accuracy = real_em
+    cs2, r2 = quality("cuda")
+    ev1, ev2 = cs1.maintainer.quality_evictions, \
+        cs2.maintainer.quality_evictions
+    evc = cpu_cs.maintainer.quality_evictions
+    check(asdict(r1) == asdict(r2) and ev1 == ev2,
+          "[events d] the quality run is not repeatable on the card")
+    check(len(ev1) > 0 and [e[:2] for e in ev1] == [e[:2] for e in evc],
+          f"[events d] the card's evictions {[e[:2] for e in ev1]} differ "
+          f"from the CPU's {[e[:2] for e in evc]}")
+    check(asdict(r1) == asdict(cpu_r),
+          "[events d] the quality run's LabelResult differs from the CPU's")
+    check(ems > 0 and q_launches == q_task == 10 * ems,
+          f"[events d] {q_launches} ds_estep launches ({q_task} on the task "
+          f"route) for {ems} EMs of 10 iterations")
+    dacc = max(abs(a[2] - b[2]) for a, b in zip(ev1, evc))
+    say(f"[events d] quality maintenance (pool 12, 3 votes, 240 tasks, "
+        f"threshold 0.72): {q_s:.2f} s; {len(ev1)} evictions, (time, wid) "
+        f"equal to the CPU run's (accuracies max |diff| {dacc:.3g}), a "
+        f"second card run equal bit for bit; {ems} sweeps reached the EM: "
+        f"ds_estep launches {q_launches}, all on the task route; "
+        f"LabelResult equal to the CPU's; {card}")
+    shape = max(set(shapes), key=shapes.count)
+    (B, R, C), (_, T, V) = shape
+    W = (R - 1) // C
+    check(estep_route(B, R, C, T, V) == "task",
+          "[events d] the sweep's E-step is not on the task route")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    rows, idx = make_estep_inputs(gen, B, W, C, T, V, dev)
+    idx[:, 0, :] = R - 1
+    lr_, pr_ = ds_estep_ref(rows, idx)
+    lp, pp = ds_estep(rows, idx)
+    torch.cuda.synchronize()
+    e_err = (pp - pr_).abs().max().item()
+    check(torch.equal(lp, lr_) and e_err <= 1e-5
+          and bool((pp[:, 0] == 1.0 / C).all()),
+          f"[events d] ds_estep disagrees with its plain version at the "
+          f"sweep's shape (max|dpost| {e_err:.3g})")
+    reps = 200
+    e_ms = cuda_ms(lambda: ds_estep(rows, idx), reps)
+
+    def many():
+        for _ in range(reps):
+            ds_estep(rows, idx)
+    e_dev, _ = mean_us(kernel_events(many)[1], "ds_estep")
+    e_plain = cuda_ms(lambda: ds_estep_ref(rows, idx), reps)
+    e_bound, e_by, e_bytes = estep_bound_ms(B, R, C, T, V)
+    say(f"[events d] ds_estep at the sweep's shape (B={B}, T={T}, V={V}, "
+        f"R={R}, C={C}; {shapes.count(shape)} of the CPU run's "
+        f"{len(shapes)} E-steps), task route: logp bit-equal to the plain "
+        f"version, max|dpost| {e_err:.3g} (tol 1e-5); per call "
+        f"{e_ms * 1e3:.2f} us, device "
+        f"{fmt_us(e_dev / 1e3 if e_dev else None)}, bound "
+        f"{e_bound * 1e3:.3f} us ({e_by}, {e_bytes} B), plain per call "
+        f"{e_plain * 1e3:.2f} us; {card}")
+
+    # hybrid learning on the event loop: entropy selection on the card
+    batches, checks = [], []
+    real_submit = LifeGuard.submit_batch
+    real_unc = compat.LogisticLearner.uncertainty
+    real_sel = compat.LogisticLearner.select_uncertain
+
+    def submit(self, tasks, cb):
+        batches.append([t.payload for t in tasks])
+        return real_submit(self, tasks, cb)
+
+    def unc(self, X):
+        u = real_unc(self, X)
+        self._seen = (X, u)
+        return u
+
+    def sel(self, X_pool, candidates, k):
+        # the kernel's top-k against the plain entropy's on the same model:
+        # where they first differ, the plain entropies' gap between the two
+        # points the orders put there
+        out = real_sel(self, X_pool, candidates, k)
+        if k > 0 and len(candidates):
+            X, u = self._seen
+            plain = entropy_ref(linear.logits(self._state(), self._x(X))
+                                ).cpu().numpy()
+            want = np.argsort(-plain, kind="stable")[:k]
+            got = np.argsort(-u, kind="stable")[:k]
+            j = np.flatnonzero(want != got)
+            gap = float(abs(plain[want[j[0]]] - plain[got[j[0]]])) \
+                if len(j) else None
+            top = np.sort(plain)[::-1][:k + 1]
+            checks.append((float(np.abs(u - plain).max()), gap,
+                           float(np.diff(-top).min())))
+        return out
+
+    def learn(plain_entropy=False):
+        del batches[:]
+        LifeGuard.submit_batch = submit
+        ccs.LogisticLearner = functools.partial(
+            compat.LogisticLearner,
+            use_kernel=False if plain_entropy else None)
+        try:
+            out, s = timed(lambda: scen.run_learning(
+                "hybrid_small", engine="events", device="cuda"))
+        finally:
+            LifeGuard.submit_batch = real_submit
+            ccs.LogisticLearner = compat.LogisticLearner
+        return list(batches), out, s
+
+    compat.LogisticLearner.uncertainty = unc
+    compat.LogisticLearner.select_uncertain = sel
+    try:
+        entropy_scores.launches = 0
+        b1, o1, l_s = learn()
+        l_launches = entropy_scores.launches
+        calls = list(checks)
+    finally:
+        compat.LogisticLearner.uncertainty = real_unc
+        compat.LogisticLearner.select_uncertain = real_sel
+    b2, o2, _ = learn()
+    b3, o3, _ = learn(plain_entropy=True)
+    check(b1 == b2 and o1["curve"] == o2["curve"]
+          and asdict(o1["result"]) == asdict(o2["result"]),
+          "[events d] run_learning is not repeatable on the card")
+    check(l_launches == len(b1) == len(calls) and l_launches > 0,
+          f"[events d] {l_launches} entropy_scores launches for {len(b1)} "
+          f"batches with active points")
+    # a choice may differ from the plain entropy's only on a near-tie: the
+    # plain entropies of the two points within twice the kernel's error
+    flips = [(i, gap) for i, (_, gap, _) in enumerate(calls)
+             if gap is not None]
+    diff = [i for i, (a, b) in enumerate(zip(b1, b3)) if a != b]
+    u_err = max(c[0] for c in calls)
+    check(u_err <= 1e-5 and all(gap <= 2 * u_err for _, gap in flips),
+          f"[events d] the kernel's entropies differ from the plain "
+          f"version's by {u_err:.3g} (tol 1e-5), or a choice differs by more "
+          f"than a near-tie: (batch, gap) {flips[:3]}")
+    if flips or diff:
+        say(f"[events d] near-tie flips against the plain entropy, (batch, "
+            f"the plain entropies' gap between the two points): {flips}; "
+            f"the plain-entropy run first differs at batch {diff[:1]}")
+    gaps = [c[2] for c in calls if c[2] > 0]
+    curve = o1["curve"]
+    say(f"[events d] run_learning(hybrid_small, engine='events'): "
+        f"{l_s:.2f} s a run ({len(b1)} batches, {curve[-1][1]} labels, "
+        f"test accuracy {curve[0][2]:.3f} -> {curve[-1][2]:.3f} at "
+        f"{curve[-1][0]:.0f} simulated s); a second card run equal bit for "
+        f"bit; entropy_scores launches {l_launches}, one per batch; "
+        f"selections equal to the plain entropy's on the same model in "
+        f"{len(calls) - len(flips)} of {len(calls)} batches (max|dH| "
+        f"{u_err:.3g}, the smallest nonzero gap among the top k + 1 "
+        f"{min(gaps, default=0.0):.3g}), a card run on the plain entropy "
+        f"equal in {len(b1) - len(diff)} of {len(b1)} batches; {card}")
+    N, Cc = 400, 2
+    x = torch.randn((N, Cc), generator=gen, device=dev) * 3
+    h = entropy_scores(x)
+    torch.cuda.synchronize()
+    h_err = (h - entropy_ref(x)).abs().max().item()
+    check(h_err <= 1e-5, f"[events d] entropy_scores disagrees with its "
+          f"plain version at ({N}, {Cc}): {h_err:.3g}")
+    reps = 200
+    h_ms = cuda_ms(lambda: entropy_scores(x), reps)
+
+    def many_h():
+        for _ in range(reps):
+            entropy_scores(x)
+    h_dev, _ = mean_us(kernel_events(many_h)[1], "entropy")
+    h_plain = cuda_ms(lambda: entropy_ref(x), reps)
+    h_lib = cuda_ms(lambda: torch.distributions.Categorical(
+        logits=x, validate_args=False).entropy(), reps)
+    h_bound, h_by, h_bytes = entropy_bound_ms(N, Cc, 4)
+    say(f"[events d] entropy_scores at the selection's shape ({N}, {Cc}): "
+        f"max|dH| {h_err:.3g} (tol 1e-5); per call {h_ms * 1e3:.2f} us, "
+        f"device {fmt_us(h_dev / 1e3 if h_dev else None)}, bound "
+        f"{h_bound * 1e3:.3f} us ({h_by}, {h_bytes} B), plain per call "
+        f"{h_plain * 1e3:.2f} us, Categorical.entropy per call "
+        f"{h_lib * 1e3:.2f} us; {card}")
+    return dict(
+        estep=dict(launches=q_launches, max_abs_err=max(e_err, 0.0),
+                   ms=e_ms, plain_ms=e_plain, bound_ms=e_bound,
+                   bound_by=e_by, library_ms=None),
+        entropy=dict(launches=l_launches, max_abs_err=max(h_err, u_err),
+                     ms=h_ms, plain_ms=h_plain, bound_ms=h_bound,
+                     bound_by=h_by, library_ms=h_lib))
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -1545,7 +1932,8 @@ def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--launch-times":
         launch_times(sys.argv[2])
         return
-    if len(sys.argv) == 2 and sys.argv[1] in ("--phase17", "--lm-depth"):
+    if len(sys.argv) == 2 and sys.argv[1] in ("--phase17", "--phase18",
+                                               "--lm-depth"):
         sys.path.insert(0, str(ROOT / "src"))
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
@@ -1556,7 +1944,16 @@ def main():
         from repro_torch.scenarios import smoke
         check(smoke.main(["--device", "cuda"]) == 0,
               "[serve a] the registry smoke failed on the card")
-        lm_stream_phase(card)
+        if sys.argv[1] == "--phase17":
+            lm_stream_phase(card)
+            return
+        from repro_torch.kernels import _build
+        t0 = time.perf_counter()
+        _build.build(("ds_estep", "entropy"))
+        say(f"[build] ds_estep, entropy {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        grid_events_phase(card)
+        say(f"[phase 18] done in {time.perf_counter() - t0:.1f} s")
         return
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
@@ -3500,6 +3897,12 @@ def main():
     torch.cuda.empty_cache()
     lm_stream_phase(card)
 
+    # ---- phase 18: the grid and the event-loop engine ---------------------
+    say(f"[phase 18] starts at {time.perf_counter() - t_smoke:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ev18 = grid_events_phase(card)
+
     # ds_estep: the public call at the stream's refresh shape (the task
     # route's warp mode), and the task kernel at the offline EM's C4 shape
     # (block mode, the table in shared memory); entropy_scores: the narrow
@@ -3548,6 +3951,14 @@ def main():
         "ms": e_mnist["ms"], "plain_ms": e_mnist["plain_ms"],
         "bound_ms": e_mnist["bound_ms"], "bound_by": e_mnist["bound_by"],
         "library_ms": e_mnist["library_ms"]}, {
+        "name": "ds_estep_events", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ds_estep.cu",
+        "replaces": "src/repro/kernels/ds_estep.py:58",
+        **ev18["estep"]}, {
+        "name": "entropy_scores_events", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/entropy.cu",
+        "replaces": "src/repro/kernels/uncertainty.py:55",
+        **ev18["entropy"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",

@@ -6,7 +6,8 @@ the two-tier ``priority_match``, worker-pool init from pre-drawn banks,
 TermEst and ``churn_and_maintain`` (shared with the streaming router); the
 batch engine (``_tick``, ``_run_batch``, ``_simulate_one``, ``simulate``);
 and the hybrid-learning loop on it (``_learner_round``,
-``simulate_learning_batch``, ``simulate_learning``). Every function works on
+``simulate_learning_batch``, ``simulate_learning``, and its learner half
+``make_learner_step``). Every function works on
 tensors with leading batch dimensions (replications, or replications x
 shards) in front of the pool or task axis: the reference's ``vmap`` over
 replications is that leading dim, its ``lax.scan`` over batches and rounds
@@ -34,8 +35,7 @@ output. :func:`simulate_swept` (:class:`SimScales` multipliers) and
 population) run every sweep point x replication as rows of one batched
 run, each point drawn as its standalone :func:`simulate` draws it.
 
-Not ported: the multi-device (pmap) path (ROADMAP A13) and
-``make_learner_step`` (A8).
+Not ported: the multi-device (pmap) path (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -805,6 +805,33 @@ def _learner_round(bcfg: FastConfig, X, y, X_test, y_test, k_active: int,
             dict(acc=acc, act_mask=act_mask, ent=ent, chosen=chosen,
                  take=take, done=done, total_time=out["total_time"],
                  n_ticks=out["n_ticks"][:, 0]))
+
+
+def make_learner_step(n_passive: int, k_active: int, fit_steps: int = 60,
+                      use_kernel=True):
+    """Batched hybrid-learning step (paper §5.1 point selection), the
+    round's learner half without the crowd batch.
+
+    ``step(W, b, X, labeled, y_obs, u)`` scores every point's predictive
+    entropy through :func:`repro_torch.learning.linear.entropy` (the
+    ``entropy_scores`` kernel for CUDA tensors, unless ``use_kernel`` is
+    False), picks the top-``k_active`` unlabeled points (ties by index)
+    and ``n_passive`` random ones by the ranks of the caller's uniforms
+    ``u`` (one per point), and fits fresh-Adam full-batch on the labeled
+    set (``labeled`` as the row weights). Returns ``(W, b, chosen,
+    act_mask)``; every argument may carry leading replication dims."""
+    uk = None if use_kernel else False
+
+    def step(W, b, X, labeled, y_obs, u):
+        st = linear.with_params(W, b)
+        ent = linear.entropy(st, X, use_kernel=uk)
+        chosen, _take, act_mask = lsel.hybrid_select(u, ent, labeled,
+                                                     k_active, n_passive)
+        st = linear.fit(st, X, y_obs, labeled.to(torch.float32),
+                        steps=fit_steps)
+        return st.W, st.b, chosen, act_mask
+
+    return step
 
 
 def draw_round(bcfg: FastConfig, n_reps: int, n: int,

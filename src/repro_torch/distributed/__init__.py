@@ -1,3 +1,3 @@
-"""Distributed-training helpers of the port: only the gradient compression
-that ``TrainConfig.compression`` needs (see :mod:`.compression`); sharding
-and elastic eviction are not ported."""
+"""Distributed-training helpers of the port: the gradient compression that
+``TrainConfig.compression`` needs (:mod:`.compression`) and the host-side
+elastic monitor (:mod:`.elastic`); sharding is not ported (ROADMAP A13)."""

@@ -231,11 +231,11 @@ def read_trace(path: str) -> dict:
 
 
 def grid_doc(res: dict) -> list:
-    """Build ``GRID_<name>.jsonl`` artifact lines from a grid result dict
-    (the reference's ``repro.grid.run_grid`` schema; the port's grid
-    engine is ROADMAP A10). Same JSONL-with-header shape
-    as the trace artifact, tagged ``artifact='grid'``: one ``class`` line
-    per compilation (with its compile/execute wall-clock split), one
+    """Build ``GRID_<name>.jsonl`` artifact lines from a
+    :func:`repro_torch.grid.run_grid` result dict (the reference's schema).
+    Same JSONL-with-header shape as the trace artifact, tagged
+    ``artifact='grid'``: one ``class`` line per static-config class (its
+    ``execute_s``; ``compile_s`` is null, the port compiles nothing), one
     ``cell`` line per grid cell (axis values + scalar summary metrics),
     and a trailing ``summary`` line with the total wall-clock."""
     lines = [dict(kind="header", schema_version=SCHEMA_VERSION,
@@ -290,8 +290,8 @@ def main(argv=None) -> int:
                                      "(repro_torch.scenarios."
                                      "list_scenarios)")
     ap.add_argument("--engine", default=None,
-                    help="simfast | stream (default: scenario's "
-                         "preferred engine)")
+                    help="events | simfast | stream (default: "
+                         "scenario's preferred engine)")
     ap.add_argument("--horizon", type=int, default=240,
                     help="stream horizon in ticks (default 240)")
     ap.add_argument("--n-reps", type=int, default=2)

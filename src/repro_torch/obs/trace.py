@@ -11,11 +11,11 @@ deterministic function of state the engine already computes, and tracing
 draws no counter-based uniforms — so traced runs stay bit-identical to
 untraced runs on every shared output key (``tests/test_torch_trace.py``).
 
-:class:`EventsTrace` is the scalar event loop's host-side counterpart,
-unused until the event loop is ported (ROADMAP A9):
-``ClamShell.run_labeling(..., trace=rec)`` calls ``record_batch`` after
-each batch and the recorder derives the per-task phase decomposition from
-the Task/Assignment timestamps the loop already keeps.
+:class:`EventsTrace` is the scalar event loop's host-side counterpart:
+``repro_torch.core.clamshell.ClamShell.run_labeling(..., trace=rec)``
+calls ``record_batch`` after each batch and the recorder derives the
+per-task phase decomposition from the Task/Assignment timestamps the loop
+already keeps.
 """
 from __future__ import annotations
 

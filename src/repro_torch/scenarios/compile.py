@@ -5,12 +5,12 @@
   * :func:`to_stream_config` -> ``repro_torch.labelstream.StreamConfig``
   * :func:`to_serve_config`  -> the same with ``serve=True``
   * :func:`to_embed_config`  -> ``repro_torch.embed.config.EmbedConfig``
+  * :func:`to_cs_config`     -> ``repro_torch.core.clamshell.CSConfig``
 
 Compilation is exact: every registry scenario lowers to the config the
 reference's compiler gives, field for field. A spec that demands a policy
 an engine cannot express raises ``ValueError`` naming the field, as in the
-reference. Not ported: the event-loop engine's ``to_cs_config`` (ROADMAP
-A9), which raises ``NotImplementedError``.
+reference.
 """
 from __future__ import annotations
 
@@ -19,6 +19,21 @@ import dataclasses
 from repro_torch.scenarios.spec import ScenarioSpec
 
 ENGINES = ("events", "simfast", "stream")
+
+#: dotted spec paths each engine runs as per-cell values inside one batched
+#: run (the batch engine's ``PopTraced``, the stream's ``StreamTraced``).
+#: ``repro_torch.grid`` partitions grid cells into static-config classes by
+#: overriding exactly these paths back to the base value before lowering
+#: and hashing; the scalar events engine batches nothing.
+TRACED_AXES = {
+    "events": (),
+    "simfast": ("pool.median_mu", "pool.session_mean_s",
+                "pool.recruit_mean_s", "pool.cold_recruit_mean_s",
+                "pool.acc_a", "pool.acc_b"),
+    "stream": ("arrivals.rate", "policy.redundancy.votes",
+               "pool.acc_a", "pool.acc_b",
+               "difficulty.p_hard", "difficulty.hard_scale"),
+}
 
 # engine defaults the spec layer must not silently change
 _FAST_DT = 2.0
@@ -140,9 +155,38 @@ def to_fast_config(spec: ScenarioSpec):
 
 
 def to_cs_config(spec: ScenarioSpec, *, seed: int = 0):
-    """The event-loop engine's config: not ported yet."""
-    raise NotImplementedError("the event-loop engine (to_cs_config) is not "
-                              "ported yet (ROADMAP A9)")
+    """ScenarioSpec -> clamshell.CSConfig (scalar event-loop engine)."""
+    from repro_torch.core.clamshell import CSConfig
+
+    _check_batch_engine(spec, "events")
+    pool, pol = spec.pool, spec.policy
+    lr = pol.learner
+    if spec.batch_size is not None:
+        batch_ratio = pool.pool_size / spec.batch_size
+    else:
+        batch_ratio = spec.batch_ratio
+    return CSConfig(
+        pool_size=pool.pool_size,
+        batch_ratio=batch_ratio,
+        n_records=spec.n_records,
+        votes_needed=pol.redundancy.votes,
+        straggler=pol.straggler.enabled,
+        routing="random",
+        pm_l=pol.maintenance.pm_l,
+        use_termest=pol.maintenance.use_termest,
+        quality_threshold=None,
+        learner=lr.kind,
+        al_fraction=lr.al_fraction,
+        al_batch=lr.al_batch,
+        decision_latency_s=lr.decision_latency_s,
+        async_retrain=lr.async_retrain,
+        uncertainty_sample=lr.uncertainty_sample,
+        retainer=pool.retainer,
+        recruit_mean_s=pool.recruit_mean_s,
+        cold_recruit_mean_s=pool.cold_recruit_mean_s,
+        session_mean_s=pool.session_mean_s,
+        seed=seed,
+    )
 
 
 def to_stream_config(spec: ScenarioSpec):

@@ -9,9 +9,11 @@ axis=..., values=...)`` and ``run_learning`` (port of
 
 ``run`` lowers the spec to the engine's config and calls the engine's entry
 point with it (:func:`~repro_torch.labelstream.router.run_stream` +
-``stream_summary``, or :func:`~repro_torch.core.simfast.simulate` +
-``summarize``), so a run equals that call bit for bit. Every entry point
-runs on the card unless the caller passes ``device="cpu"``.
+``stream_summary``, :func:`~repro_torch.core.simfast.simulate` +
+``summarize``, or one :class:`~repro_torch.core.clamshell.ClamShell` run
+per seed for the scalar event loop), so a run equals that call bit for
+bit. Every entry point runs on the card unless the caller passes
+``device="cpu"``.
 
 With ``trace.enabled`` on the spec, ``run`` also attaches the trace
 artifact's lines (``repro_torch.obs.export.trace_doc``) as ``out["trace"]``.
@@ -24,18 +26,16 @@ votes cap (``run_stream_votes_sweep``) and the ``StreamTraced`` axes
 and the batch engine's ``SimScales`` pool axes (``simulate_swept``) and
 Beta accuracy prior (``simulate_swept_pop``). Every other axis runs one
 ``run`` per value, as in the reference.
-
-The event-loop engine is not ported (ROADMAP A9): ``engine="events"``
-raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.scenarios.compile import (
-    engines, to_fast_config, to_stream_config,
+    TRACED_AXES, engines, to_cs_config, to_fast_config, to_stream_config,
 )
 from repro_torch.scenarios.registry import (
     get_fast_config, get_learning_spec, get_scenario, learning_spec,
@@ -52,15 +52,14 @@ _SIMFAST_AXES = {
 _STREAM_AXES = ("arrivals.rate",)
 #: stream axis that maps onto the masked votes cap
 _STREAM_VOTES_AXIS = "policy.redundancy.votes"
-#: Beta accuracy-prior axes (simfast ``PopTraced``)
-_ACC_AXES = ("pool.acc_a", "pool.acc_b")
-#: stream axes of the ``StreamTraced`` grid bundle
-_STREAM_TRACED_AXES = {
-    "pool.acc_a": "acc_a",
-    "pool.acc_b": "acc_b",
-    "difficulty.p_hard": "p_hard",
-    "difficulty.hard_scale": "hard_scale",
-}
+#: Beta accuracy-prior axes: traced on both batched engines (simfast
+#: ``PopTraced``, stream ``StreamTraced``)
+_ACC_AXES = tuple(p for p in TRACED_AXES["simfast"]
+                  if p in TRACED_AXES["stream"])
+#: stream axes of the ``StreamTraced`` grid bundle (the traced axes other
+#: than the rate scale and the masked cap), each under its field name
+_STREAM_TRACED_AXES = {p: p.split(".")[-1] for p in TRACED_AXES["stream"]
+                       if p not in _STREAM_AXES + (_STREAM_VOTES_AXIS,)}
 
 
 def _resolve_engine(spec: ScenarioSpec, engine):
@@ -75,10 +74,30 @@ def _resolve_engine(spec: ScenarioSpec, engine):
     if engine not in compat:
         raise ValueError(f"scenario {spec.name or '<anonymous>'} cannot run "
                          f"on engine {engine!r} (compatible: {compat})")
-    if engine == "events":
-        raise NotImplementedError("the event-loop engine is not ported yet "
-                                  "(ROADMAP A9)")
     return engine
+
+
+def _label_metrics(results) -> dict:
+    """Mean service metrics over a list of event-loop LabelResults."""
+    lat_means = [np.mean(r.task_latencies) for r in results
+                 if r.task_latencies]
+    lat_stds = [np.std(r.task_latencies) for r in results
+                if r.task_latencies]
+    return dict(
+        n_reps=len(results),
+        total_time=float(np.mean([r.total_time for r in results])),
+        n_labels=float(np.mean([r.n_labels for r in results])),
+        throughput=float(np.mean([r.throughput for r in results])),
+        # a run that timed out before any completion has no latency data;
+        # report inf (no evidence of a bounded latency), never NaN
+        mean_latency=float(np.mean(lat_means)) if lat_means
+        else float("inf"),
+        std_latency=float(np.mean(lat_stds)) if lat_stds else float("inf"),
+        accuracy=float(np.mean([r.accuracy for r in results])),
+        cost=float(np.mean([r.cost for r in results])),
+        cost_wait=float(np.mean([r.cost_wait for r in results])),
+        cost_work=float(np.mean([r.cost_work for r in results])),
+    )
 
 
 def _attach_trace(out: dict, scenario: ScenarioSpec) -> dict:
@@ -93,17 +112,22 @@ def _attach_trace(out: dict, scenario: ScenarioSpec) -> dict:
 
 def run(scenario, engine: str = None, *, seed: int = 0, n_reps: int = 1,
         horizon: int = None, rate_scale: float = 1.0,
-        warmup_frac: float = 0.3, true_labels=None, device="cuda") -> dict:
+        warmup_frac: float = 0.3, true_labels=None, max_time: float = None,
+        device="cuda") -> dict:
     """Run ``scenario`` on ``engine`` (default: the scenario's preferred
     compatible engine — simfast for batch workloads, stream otherwise) on
     ``device``.
 
     Returns ``{"engine", "scenario", "config", "metrics", "raw"}``:
     ``config`` is the lowered engine config, ``metrics`` the engine's
-    summary dict and ``raw`` the engine's output tensors; with
-    ``trace.enabled``, ``trace`` the trace artifact's lines. Engine knobs:
-    ``horizon`` / ``rate_scale`` / ``warmup_frac`` (stream; ``horizon``
-    defaults to the spec's), ``true_labels`` (simfast).
+    summary dict and ``raw`` the engine's output (tensors for simfast and
+    stream, a list of ``LabelResult`` for events); with ``trace.enabled``,
+    ``trace`` the trace artifact's lines (and ``events_trace``, the
+    recorder, on events). Engine knobs: ``horizon`` / ``rate_scale`` /
+    ``warmup_frac`` (stream; ``horizon`` defaults to the spec's),
+    ``true_labels`` (batch engines), ``max_time`` (events: the budget in
+    simulated seconds); on events ``n_reps`` runs seeds ``seed .. seed +
+    n_reps - 1``.
     """
     if not isinstance(scenario, ScenarioSpec):
         raise TypeError("run() takes a ScenarioSpec (use get_scenario or "
@@ -119,13 +143,36 @@ def run(scenario, engine: str = None, *, seed: int = 0, n_reps: int = 1,
                          device=device)
         out.update(config=cfg, metrics=stream_summary(cfg, raw), raw=raw)
         return _attach_trace(out, scenario)
-    from repro_torch.core.simfast import simulate
-    from repro_torch.core.simfast_stats import summarize
-    cfg = to_fast_config(scenario)
-    raw = simulate(cfg, n_reps, seed=seed, true_labels=true_labels,
-                   device=device)
-    out.update(config=cfg, metrics=dataclasses.asdict(summarize(raw)),
-               raw=raw)
+    if engine == "simfast":
+        from repro_torch.core.simfast import simulate
+        from repro_torch.core.simfast_stats import summarize
+        cfg = to_fast_config(scenario)
+        raw = simulate(cfg, n_reps, seed=seed, true_labels=true_labels,
+                       device=device)
+        out.update(config=cfg, metrics=dataclasses.asdict(summarize(raw)),
+                   raw=raw)
+        return _attach_trace(out, scenario)
+
+    # events: the scalar engine, one replication per seed
+    from repro_torch.core.clamshell import ClamShell
+    cfg = to_cs_config(scenario, seed=seed)
+    rec = None
+    if scenario.trace.enabled:
+        from repro_torch.obs.trace import EventsTrace
+        rec = EventsTrace()
+    results = []
+    for r in range(n_reps):
+        cs = ClamShell(to_cs_config(scenario, seed=seed + r), device=device)
+        kw = {} if max_time is None else {"max_time": max_time}
+        if true_labels is not None:
+            kw["true_labels"] = true_labels
+            kw["n_classes"] = scenario.n_classes
+        if rec is not None:
+            kw["trace"] = rec
+        results.append(cs.run_labeling(scenario.n_tasks, **kw))
+    out.update(config=cfg, metrics=_label_metrics(results), raw=results)
+    if rec is not None:
+        out["events_trace"] = rec
     return _attach_trace(out, scenario)
 
 
@@ -302,7 +349,8 @@ def run_learning(scenario, X=None, y=None, X_test=None, y_test=None,
                  fit_steps: int = 60, k_active=None, use_kernel: bool = True,
                  accest=None, n_train: int = 1500, n_test: int = 500,
                  device="cuda", draws=None, overrides: dict = None,
-                 embed_draws: dict = None):
+                 embed_draws: dict = None, label_budget: int = 500,
+                 max_time: float = 6 * 3600.0):
     """Hybrid learning on a scenario: a :class:`ScenarioSpec`, or a registry
     name with the reference's dotted ``overrides`` (see
     :func:`~repro_torch.scenarios.registry.get_learning_spec`).
@@ -318,8 +366,17 @@ def run_learning(scenario, X=None, y=None, X_test=None, y_test=None,
     :func:`~repro_torch.core.simfast.simulate_learning` (with ``accest``);
     the learner kind sets each round's active / passive split unless
     ``k_active`` does. ``draws`` replaces the rounds' draws. Returns the
-    engine's result with the config. ``engine="events"`` (the reference's
-    event loop) is not ported yet (ROADMAP A9).
+    engine's result with the config.
+
+    ``engine="events"`` runs the paper's simulator,
+    :meth:`~repro_torch.core.clamshell.ClamShell.run_learning`: one
+    replication, its learner policy (kind, fractions, asynchronous
+    retraining, decision latency) from ``policy.learner``, up to
+    ``label_budget`` labels or ``max_time`` simulated seconds; the batch
+    engine's knobs (``n_reps``, ``rounds``, ``fit_steps``, ``use_kernel``,
+    ``vectorized``, ``accest``, ``k_active``, ``draws``) do not apply
+    there. With a registry name, ``overrides`` are dotted spec paths.
+    Returns ``{"engine", "scenario", "config", "curve", "result"}``.
     """
     from repro_torch.core.simfast import (
         simulate_learning, simulate_learning_batch,
@@ -328,12 +385,12 @@ def run_learning(scenario, X=None, y=None, X_test=None, y_test=None,
     from repro_torch.embed.bank import make_dataset
 
     dev = resolve_device(device)
-    if engine == "events":
-        raise NotImplementedError("run_learning on the event-loop engine is "
-                                  "not ported yet (ROADMAP A9)")
-    if engine != "simfast":
+    if engine not in ("events", "simfast"):
         raise ValueError("run_learning engine must be 'events' or "
                          f"'simfast', got {engine!r}")
+    if isinstance(scenario, str) and engine == "events":
+        scenario = get_scenario(scenario, overrides)
+        overrides = None
     if isinstance(scenario, str):
         name = scenario
         cfg = get_fast_config(name)
@@ -363,6 +420,20 @@ def run_learning(scenario, X=None, y=None, X_test=None, y_test=None,
     elif y is None or X_test is None or y_test is None:
         raise ValueError("run_learning: pass all of X/y/X_test/y_test "
                          "or none (spec-built dataset)")
+    if engine == "events":
+        from repro_torch.core.clamshell import ClamShell
+        host = lambda a: a.cpu().numpy() if torch.is_tensor(a) \
+            else np.asarray(a)  # noqa: E731
+        # the event loop consumes the matrix built above: lower the config
+        # with the feature kind stripped, as the batch engine does
+        ccfg = to_cs_config(override(scenario, {"features.kind": "gaussian"})
+                            if spec.feature_kind != "gaussian" else scenario,
+                            seed=seed)
+        curve, res = ClamShell(ccfg, device=dev).run_learning(
+            host(X), host(y), host(X_test), host(y_test),
+            label_budget=label_budget, max_time=max_time)
+        return dict(engine="events", scenario=name, config=ccfg,
+                    curve=curve, result=res)
     if k_active is None:
         k_active = _k_active(spec, cfg.pool_size)
     kw = dict(rounds=rounds, seed=seed, fit_steps=fit_steps,

@@ -5,9 +5,7 @@ the port runs (port of ``src/repro/scenarios/smoke.py``).
 
 Each scenario is shrunk (few tasks, two stream ticks, one replication): the
 point is "does every (scenario, engine) pair still compile and produce
-finite metrics", not performance. Pairs the port cannot run yet print as
-``[TODO]`` with the ROADMAP item that ports them and are counted apart;
-any other failure makes the exit code nonzero.
+finite metrics", not performance. Any failure makes the exit code nonzero.
 """
 from __future__ import annotations
 
@@ -27,17 +25,9 @@ def shrink(spec):
     small = {"n_tasks": min(spec.n_tasks, 4), "horizon": 2}
     if spec.batch_size is not None:
         small["batch_size"] = min(spec.batch_size, 4)
-    # a couple of simulated minutes bounds a batch run
+    # a couple of simulated minutes bounds the events engine's wall-clock
     small["engine.max_batch_time"] = min(spec.engine.max_batch_time, 1800.0)
     return override(spec, small)
-
-
-def unported(spec, engine: str):
-    """The ROADMAP item that ports ``(spec, engine)``, or None if the port
-    runs it."""
-    if engine == "events":
-        return "A9"
-    return None
 
 
 def main(argv=None, device="cuda") -> int:
@@ -47,7 +37,7 @@ def main(argv=None, device="cuda") -> int:
     ap.add_argument("--device", default=device)
     args = ap.parse_args(argv)
     t0 = time.time()
-    failures, todo, n_ok = [], [], 0
+    failures, n_ok = [], 0
     for name in list_scenarios():
         spec = get_scenario(name)
         compat = engines(spec)
@@ -56,12 +46,6 @@ def main(argv=None, device="cuda") -> int:
             print(f"[FAIL] {name}: no compatible engine")
             continue
         for engine in compat:
-            item = unported(spec, engine)
-            if item is not None:
-                todo.append(f"{name}/{engine} ({item})")
-                print(f"[TODO] {name:28s} {engine:8s} not ported yet "
-                      f"(ROADMAP {item})")
-                continue
             try:
                 res = run(shrink(spec), engine, n_reps=1, seed=0,
                           device=args.device)
@@ -80,8 +64,7 @@ def main(argv=None, device="cuda") -> int:
                 failures.append(f"{name}/{engine}: {type(e).__name__}: {e}")
                 print(f"[FAIL] {name:28s} {engine:8s} {e}")
     print(f"# {len(list_scenarios())} scenarios on {args.device}: {n_ok} "
-          f"ok, {len(todo)} not ported yet, {len(failures)} failure(s), "
-          f"{time.time() - t0:.1f}s")
+          f"ok, {len(failures)} failure(s), {time.time() - t0:.1f}s")
     for f in failures:
         print(f"  - {f}")
     return 1 if failures else 0

@@ -35,6 +35,11 @@ def test_the_scan_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/labelstream/router.py" in names
     assert "src/repro_torch/obs/export.py" in names
+    for mod in ("grid/engine.py", "grid/__main__.py", "core/clamshell.py",
+                "core/events.py", "core/lifeguard.py", "core/maintenance.py",
+                "core/workers.py", "learning/compat.py",
+                "serving/scheduler.py", "distributed/elastic.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names
     assert len(FILES) > 50
 

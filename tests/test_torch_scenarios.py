@@ -167,8 +167,8 @@ def test_compile_matches_reference_field_for_field(name):
     assert asdict(T.to_embed_config(spec)) == asdict(J.to_embed_config(jsp))
     for engine in J.engines(jsp):
         if engine == "events":
-            with pytest.raises(NotImplementedError, match="A9"):
-                T.compile_for(spec, engine)
+            assert asdict(T.compile_for(spec, engine, seed=3)) == \
+                asdict(J.compile_for(jsp, engine, seed=3))
         elif engine == "simfast":
             assert asdict(T.to_fast_config(spec)) == \
                 asdict(J.to_fast_config(jsp))
@@ -251,8 +251,8 @@ def test_name_keyed_helpers_are_registry_lowerings():
 
 def test_trace_and_events_raise_naming_their_item():
     """Traces lower to the port's TraceConfig on both batched engines; what
-    is still not ported (the event loop, LM stream features, device
-    sharding) raises ``NotImplementedError`` naming its ROADMAP item."""
+    is still not ported (device sharding) raises ``NotImplementedError``
+    naming its ROADMAP item. The event loop and LM stream features run."""
     from repro_torch.obs.trace import TraceConfig
     traced = T.override(T.get_scenario("stream_default"),
                         {"trace.enabled": True})
@@ -270,10 +270,12 @@ def test_trace_and_events_raise_naming_their_item():
         T.run(T.override(T.get_scenario("stream_sharded"),
                          {"sharding.n_devices": 2}), horizon=2,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.run(T.get_scenario("smallR1"), "events", device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.to_cs_config(T.get_scenario("smallR1"))
+    ev = T.run(T.get_scenario("smallR1"), "events", n_reps=2, seed=1,
+               device="cpu")
+    assert ev["metrics"] == J.run(J.get_scenario("smallR1"), "events",
+                                  n_reps=2, seed=1)["metrics"]
+    assert dataclasses.asdict(T.to_cs_config(T.get_scenario("smallR1"))) \
+        == dataclasses.asdict(J.to_cs_config(J.get_scenario("smallR1")))
     with pytest.raises(TypeError):
         T.run(T.get_stream_config("stream_default"), device="cpu")
 
@@ -393,9 +395,13 @@ def test_run_learning_takes_a_spec():
     narrow = T.run_learning(T.get_scenario("hybrid_small"),
                             overrides={"features.n_features": 4}, **kw)
     assert narrow["raw"]["W"].shape[-2] == 4
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.run_learning(T.get_scenario("hybrid_small"), engine="events",
-                       device="cpu")
+    ev = dict(engine="events", n_train=300, n_test=100, label_budget=30,
+              device="cpu")
+    by_spec = T.run_learning(T.get_scenario("hybrid_small"), **ev)
+    by_name = T.run_learning("hybrid_small", **ev)
+    assert by_spec["engine"] == "events" and len(by_spec["curve"]) == 4
+    assert by_spec["curve"] == by_name["curve"]
+    assert by_spec["result"].n_labels == 30
     with pytest.raises(TypeError):
         T.run_learning(3, device="cpu")
 
@@ -404,8 +410,5 @@ def test_registry_smoke_on_the_cpu(capsys):
     assert smoke.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "[FAIL]" not in out
-    todo = sorted(line.split()[1] + "/" + line.split()[2]
-                  for line in out.splitlines() if line.startswith("[TODO]"))
-    assert todo == ["hybrid_small/events", "smallR1/events",
-                    "throughput_v3_pm/events"]
-    assert out.count("[ ok ]") == 17
+    assert "[TODO]" not in out
+    assert out.count("[ ok ]") == 20
