@@ -93,11 +93,11 @@ drives the port's main path on the card:
      size equal to a straight run;
  14. the learner-aware stream tick at 256 replications: (a)
      ``skewed_learner_fused`` (the learner fused into the posterior,
-     uncertainty-first routing) with the EM refresh for 480 ticks, (b)
+     uncertainty-first routing) with the EM refresh for 240 ticks, (b)
      ``chance_hard`` (scored routing) with ``uncertain_learnable``
-     admission (the learnability head), (c) ``stream_sharded`` (8 shards,
-     pressure stealing) and (d) the same at 20x its rate, where shards do
-     steal, each for 240 ticks; each twice, bit for bit in every integer
+     admission (the learnability head) for 120, (c) ``stream_sharded`` (8
+     shards, pressure stealing) and (d) the same at 20x its rate, where
+     shards do steal, each for 240 ticks; each twice, bit for bit in every integer
      output, conservation exact, (a)'s 72 E-steps on the task route,
      ``model_known > 0`` with the learner, as much stolen as donated, and
      the first 8 replications equal to a CPU run of the port on the same
@@ -143,7 +143,7 @@ drives the port's main path on the card:
      forward on the CPU on the same parameters (the tests' jitted bound),
      s, kernels and device idle share per micro-batch; (b) ``lm_stream``
      and ``lm_chance_hard`` on that model through ``scenarios.run`` for
-     480 ticks x 256 replications, each twice, bit for bit in every
+     240 ticks x 256 replications, each twice, bit for bit in every
      integer output, and a 4 x 120 run equal to the port on the CPU on the
      same bank, initial state and arrivals; ticks per second and kernels
      per tick; (c) live text over HTTP: 8 clients x 32 text submissions to
@@ -172,7 +172,40 @@ drives the port's main path on the card:
      ``entropy_scores`` launch per batch, every selection equal to the
      plain entropy's on the same model and to a card run on the plain
      entropy; the entropy at the selection's (400, 2) timed beside its
-     bound, the plain version and ``Categorical.entropy``.
+     bound, the plain version and ``Categorical.entropy``;
+ 19. the rest of the LM stack (prefill and decode with their caches, the
+     MoE, cross-attention and the encoder-decoder), every model with random
+     weights drawn on the card from a seed: (a) recurrentgemma-2b at full
+     width and depth, 4 prompts of 2560 tokens (past its 2048 window, so
+     prefill fills the ring), then 16 greedy decode steps; (b)
+     granite-moe-3b-a800m at full width and depth as ``lm_stream``'s
+     encoder: the bank (512 x 48 tokens, micro-batches of 64) twice, bit
+     for bit, and ``run_stream`` on it for 120 ticks x 64 replications;
+     at full width and 2 layers the card against the CPU on the same
+     parameters: the MoE's dispatch integers equal in float32, each
+     bfloat16 routing flip named with its gap; (c) whisper-base at full
+     width and depth: the bank through the encoder over 1500 stub frames,
+     and a prefill of 4 x 64 tokens with random frames plus 8 decode
+     steps; (d) mixtral-8x7b (1 layer; capacity raised to the expert count
+     so that no token drops) and llama-3.2-vision-11b (5 layers, one
+     cross-attending 1600 image tokens), prefill of 4 x 256 tokens plus 4
+     decode steps. Every prefill + decode runs twice, bit for bit, its
+     flash and scan launches as the layers give them (decode: by position,
+     the RG-LRU step elementwise, cross-attention through the kernel), and
+     each step's logits within the train forward's own response to a
+     one-ulp move of the embeddings, a decode that does not carry its
+     cache breaking that bound; then the self-attention block alone in
+     float32 at full width (positions enter nowhere else), prefill +
+     decode against the train block: ``pos`` exact, the output within the
+     block's response to a one-ulp input move, a decode at positions off
+     by one breaking that bound; top-1 agreement,
+     prefill ms, decode ms a token, kernels and idle share of a decode
+     step; ``flash_attention`` at the encoder's (64, 1500, 8, 64), the
+     bank's cross shape (Sq 48, Sk 1500) and the VLM's (Sq 256, Sk 1600),
+     and ``linear_scan`` at the prefill's (4, 2560, 2560), each held
+     against its plain version (flash within 2e-2, the scan bit-equal; a
+     second call bit-equal), timed beside its bound and SDPA, with the
+     launches the main path made at that shape.
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -184,13 +217,16 @@ shapes through the package under SRC (another commit's ``src`` unpacked
 beside this one, say), to compare two launch paths in turns in one run.
 With ``--phase17`` it runs only the registry smoke and phase 17 (no kernel
 build: the LM stream launches none); with ``--phase18`` only the registry
-smoke, the build of ``ds_estep`` and ``entropy`` and phase 18; with ``--lm-depth`` only the
+smoke, the build of ``ds_estep`` and ``entropy`` and phase 18; with
+``--phase19`` only the build of ``flash_attention`` and ``linear_scan`` and
+phase 19; with ``--lm-depth`` only the
 full-width xlstm-125m forward on the card against the CPU, group by group,
 in bfloat16 and float32, beside the forward's own response to a one-ulp
 move of its input (how far bfloat16 rounding alone carries with depth).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -483,16 +519,16 @@ def stream_learner_phase(card: str):
     H, N, SEED, n8 = 1440, 256, 0, 8
     refresh = {"refresh_every": 40, "refresh_iters": 6}
     runs = [
-        # (a) runs a third of phase 4's horizon and (b)-(d) a sixth, to keep
-        # the smoke run well inside its time limit with phases 15-17 after
-        # them
+        # (a) runs a sixth of phase 4's horizon, (b) a twelfth and (c)-(d)
+        # a sixth, to keep the smoke run well inside its time limit with
+        # phases 15-19 after them
         ("a", f"skewed_learner_fused with the refresh, horizon cut to "
-         f"{H // 3} ticks",
-         get_stream_config("skewed_learner_fused", refresh), H // 3),
+         f"{H // 6} ticks",
+         get_stream_config("skewed_learner_fused", refresh), H // 6),
         ("b", "chance_hard with uncertain_learnable admission, horizon cut "
-         f"to {H // 6} ticks",
+         f"to {H // 12} ticks",
          get_stream_config("chance_hard", {"routing": RoutingConfig(
-             enabled=True, admission="uncertain_learnable")}), H // 6),
+             enabled=True, admission="uncertain_learnable")}), H // 12),
         ("c", "stream_sharded (8 shards, pressure stealing), horizon cut "
          f"to {H // 6} ticks",
          get_stream_config("stream_sharded"), H // 6),
@@ -1257,7 +1293,7 @@ def lm_stream_phase(card: str):
         group, n_full, _ = mcfg.layer_groups()
         with full_fp32():
             for gp in mmodel._unstack(ps["groups"], n_full):
-                x = mmodel._group_body(x, gp, group, mcfg, "chunked")
+                x = group_hidden(x, gp, group, mcfg)
             return mlayers.apply_norm(ps["final_norm"], x, mcfg.norm,
                                       mcfg.norm_eps).cpu()
 
@@ -1319,7 +1355,7 @@ def lm_stream_phase(card: str):
                        first_s=first_s, bf16=bf, ulp=ulp, f32=f32)
 
     # ---- (b) both LM workloads at full width ------------------------------
-    H, N, SEED, H4, N4 = 480, 256, 0, 120, 4
+    H, N, SEED, H4, N4 = 240, 256, 0, 120, 4
     for name in ("lm_stream", "lm_chance_hard"):
         tag = f"[lm b {name}]"
         sp = get_scenario(name, LM_FULL)
@@ -1832,6 +1868,621 @@ def grid_events_phase(card: str) -> dict:
                      ms=h_ms, plain_ms=h_plain, bound_ms=h_bound,
                      bound_by=h_by, library_ms=h_lib))
 
+def draw_on_card(template, gen: torch.Generator):
+    """float32 tensors for every leaf of ``template`` from the distributions
+    of ``init_params``, drawn in flatten order on the card from ``gen``: a
+    full-width model's billions of values take seconds there and tens of
+    seconds on the host (the numbers differ from a CPU draw of the seed)."""
+    from repro_torch.models.params import _init_leaf, tree_map
+    return tree_map(lambda p: _init_leaf(p, gen), template)
+
+
+def card_model(name: str, seed: int, master: bool = False, **cut):
+    """A registered architecture at its published widths (``cut``: the
+    fields cut to fit the phase) with random float32 weights drawn on the
+    card from ``seed``, cast once to bfloat16 (the masters are dropped), or
+    the float32 masters themselves with ``master``. Returns (config,
+    parameters, parameter count)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import compute_params, model_template
+    from repro_torch.models.params import count_params
+    cfg = dataclasses.replace(get_config(name), **cut)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    template = model_template(cfg)
+    ps = draw_on_card(template, gen)
+    ps = ps if master else compute_params(ps)
+    torch.cuda.synchronize()
+    return cfg, ps, count_params(template)
+
+
+@contextlib.contextmanager
+def flash_by_shape(tally: dict):
+    """While open, adds ``flash_attention``'s own launch count to
+    ``tally[(B, Sq, Sk, Hq, Hkv, D, causal)]`` for each call the model's
+    layers make, so that a time taken at one shape is paired with the
+    launches made at that shape."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import layers as mlayers
+    inner = mlayers.flash_attention
+
+    def counted(q, k, v, *, causal=True, window=0):
+        n = kfa.flash_attention.launches
+        out = inner(q, k, v, causal=causal, window=window)
+        key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+               q.shape[3], causal)
+        tally[key] = tally.get(key, 0) + kfa.flash_attention.launches - n
+        return out
+
+    mlayers.flash_attention = counted
+    try:
+        yield tally
+    finally:
+        mlayers.flash_attention = inner
+
+
+def _counts():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import linear_scan
+    return flash_attention.launches, linear_scan.launches
+
+
+def _zero_counts():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import linear_scan
+    flash_attention.launches = 0
+    linear_scan.launches = linear_scan.chunked_launches = 0
+
+
+def decode_check(tag: str, cfg, cp, prompts, cs, n_steps: int, card: str,
+                 seed: int, tally: dict | None = None) -> dict:
+    """Prefill ``prompts`` (B, S) (``cs`` the cross source or None), then
+    ``n_steps`` greedy decode steps through ``make_prefill_step`` /
+    ``make_decode_step`` on bfloat16 parameters, twice, bit for bit; each
+    step's logits held against the train-mode forward over the same
+    tokens. The bound is the forward's own response to moving every
+    embedding value by one bfloat16 ulp (random direction), mean and max
+    over the steps. A decode that does not carry its cache (a planted
+    fault) must break the mean bound. Positions off by one stay inside it
+    on recurrentgemma-2b, and the max bound is loose on mixtral-8x7b
+    (3.75 of the mean |logit|): :func:`positions_gate` holds positions in
+    float32. Counts the kernels' launches in prefill
+    and in decode (in the first run also by shape into ``tally``); times
+    prefill, decode per token, and profiles one decode step."""
+    from repro_torch.models.model import forward
+    from repro_torch.models.stepfn import make_decode_step, make_prefill_step
+    B, S = prompts.shape
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    batch = {"tokens": prompts, "cross_src": cs}
+    pos = lambda p: torch.full((B,), p, dtype=torch.int32, device="cuda")
+
+    def run():
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = prefill(cp, batch)
+        torch.cuda.synchronize()
+        pre_s, pre_n = time.perf_counter() - t0, _counts()
+        _zero_counts()
+        outs, toks = [lg], []
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            toks.append(outs[-1].argmax(-1))
+            ld, cache = decode(cp, cache, toks[-1][:, None], pos(S + i))
+            outs.append(ld)
+        torch.cuda.synchronize()
+        return dict(logits=torch.stack(outs, 1), toks=torch.stack(toks, 1),
+                    cache=cache, pre_s=pre_s, dec_s=time.perf_counter() - t0,
+                    pre_n=pre_n, dec_n=_counts())
+
+    with (flash_by_shape(tally) if tally is not None
+          else contextlib.nullcontext()):
+        r1 = run()
+    r2 = run()
+    check(torch.equal(r1["logits"], r2["logits"])
+          and torch.equal(r1["toks"], r2["toks"]),
+          f"{tag} prefill + decode is not bit-repeatable on the card")
+    blocks = cfg.blocks()
+    n_self = sum(k in ("attn", "moe", "xattn") for k in blocks)
+    n_x, n_rg = blocks.count("xattn"), blocks.count("rglru")
+    want_pre = (n_self + n_x + cfg.n_encoder_layers, n_rg)
+    check(r1["pre_n"] == want_pre, f"{tag} prefill launched (flash, scan) "
+          f"= {r1['pre_n']}, the model's layers give {want_pre}")
+    check(r1["dec_n"] == (n_x * n_steps, 0), f"{tag} decode launched "
+          f"(flash, scan) = {r1['dec_n']}, want ({n_x * n_steps}, 0): "
+          "self-attention by position, cross-attention by the kernel, the "
+          "RG-LRU step elementwise")
+    # the train-mode forward over the prompt and the greedy tokens
+    seq = torch.cat([prompts, r1["toks"]], 1)
+    unembed = cp.get("unembed")
+    unembed = cp["embed"].T if unembed is None else unembed
+
+    def logits_at(params):
+        h = forward(params, cfg, seq, cross_src=cs, logits_mode="hidden")[0]
+        return (h[:, S - 1:].to(torch.bfloat16) @ unembed).float()
+
+    ref = logits_at(cp)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    step = (torch.randint(0, 2, cp["embed"].shape, generator=gen,
+                          device="cuda", dtype=torch.int16) * 2 - 1)
+    # the bit pattern moved by one: the neighbouring bfloat16 value (a zero
+    # stays, where one step down would wrap to NaN)
+    e = cp["embed"]
+    moved = dict(cp, embed=torch.where(
+        e == 0, e, (e.view(torch.int16) + step).view(torch.bfloat16)))
+    del step, e
+    resp = (logits_at(moved) - ref).abs()
+    del moved
+    err = (r1["logits"] - ref).abs()
+    scale = float(ref.abs().mean())
+    e_mean, e_max = float(err.mean()) / scale, float(err.max()) / scale
+    b_mean, b_max = float(resp.mean()) / scale, float(resp.max()) / scale
+    top1 = float((r1["logits"].argmax(-1) == ref.argmax(-1)).float().mean())
+    # planted fault, on the same tokens: decode that does not carry its
+    # cache (every step from prefill's)
+    _, cache0 = prefill(cp, batch)
+    stale = [decode(cp, cache0, r1["toks"][:, i:i + 1], pos(S + i))[0]
+             for i in range(n_steps)]
+    s_mean = float((torch.stack(stale, 1)[:, 1:] - ref[:, 2:]).abs().mean()
+                   ) / scale
+    d_mean = float(err[:, 1:].mean()) / scale
+    check(e_mean <= b_mean and e_max <= b_max, f"{tag} decode's logits "
+          f"differ from the forward's (mean {e_mean:.3g}, max {e_max:.3g} "
+          f"of the mean |logit|) by more than a one-ulp move of the "
+          f"embeddings moves the forward (mean {b_mean:.3g}, max "
+          f"{b_max:.3g})")
+    # positions off by one move recurrentgemma-2b's logits less than this
+    # bound (8 of its 26 layers attend; measured on an H100, PERF.md):
+    # positions_gate holds them in float32
+    check(s_mean > b_mean, f"{tag} the planted fault (cache not carried) "
+          f"stays inside the bound: mean {s_mean:.3g} <= {b_mean:.3g}")
+    # one decode step profiled
+    last = r1["toks"][:, -1:]
+    wall, n_k, busy_us, _ = device_profile(
+        lambda: decode(cp, r1["cache"], last, pos(S + n_steps)))
+    tok_ms = 1e3 * r1["dec_s"] / n_steps
+    idle = (1 - busy_us / 1e3 / tok_ms) * 100 if n_k else None
+    say(f"{tag} B {B}, prompt {S} tokens"
+        + (f", cross source {tuple(cs.shape)}" if cs is not None else "")
+        + f": prefill {1e3 * r1['pre_s']:.1f} ms ({1e3 * r2['pre_s']:.1f} "
+        f"again) with {r1['pre_n'][0]} flash_attention and {r1['pre_n'][1]} "
+        f"linear_scan launches; {n_steps} greedy decode steps "
+        f"{tok_ms:.2f} ms a token ({1e3 * r2['dec_s'] / n_steps:.2f} again), "
+        f"{r1['dec_n'][0]} flash launches (cross-attention); both runs "
+        f"bit-equal; against the train forward over the same {S + n_steps} "
+        f"tokens: mean |d| {e_mean:.3g}, max {e_max:.3g} of the mean |logit| "
+        f"(decode steps alone mean {d_mean:.3g}), within the forward's "
+        f"response to a one-ulp move of the embeddings (mean {b_mean:.3g}, "
+        f"max {b_max:.3g}); top-1 agreement {top1 * 100:.1f}%; planted "
+        f"fault: cache not carried (steps 2-{n_steps}) mean {s_mean:.3g}; "
+        f"one decode step "
+        + (f"{n_k} kernels, device busy {busy_us:.0f} us of {tok_ms * 1e3:.0f}"
+           f" us: idle {idle:.1f}%" if n_k else "device time not measured")
+        + f"; {card}")
+    return dict(prefill_ms=1e3 * r1["pre_s"], token_ms=tok_ms,
+                kernels=n_k or None, idle=idle, top1=top1, err=(e_mean, e_max),
+                bound=(b_mean, b_max), fault=s_mean,
+                pre_n=r1["pre_n"],
+                dec_n=r1["dec_n"])
+
+
+def positions_gate(tag: str, cfg, S: int, n_steps: int, card: str,
+                   seed: int) -> dict:
+    """Positions enter the model only in self-attention (RoPE, the cache
+    slot, the causal and window masks), and in bfloat16 a whole model's
+    rounding can drown them (:func:`decode_check`). So this holds that
+    block alone at the model's widths in float32 (products in full
+    float32), on the card: random float32 weights and inputs (B 4, S + n
+    positions), prefill of S and ``n_steps`` decode steps at positions S,
+    S + 1, ... against the train block over all S + n positions. What is
+    left between them is the cache's bfloat16 k and v (the reference's
+    cache dtype). Each step's ``pos`` must be exact (slot p % C holds p),
+    the attention's output (the block's output less its residual input)
+    within the train block's own response to moving every input value by
+    one bfloat16 ulp (random direction), mean and max; decode at
+    positions off by one (a planted fault) must break the mean bound."""
+    from repro_torch.device import full_fp32
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models import model as mmodel
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    p = draw_on_card(mlayers.attn_template(cfg), gen)
+    B, T = 4, S + n_steps
+    x = torch.randn((B, T, cfg.d_model), generator=gen, device="cuda")
+    xb = x.to(torch.bfloat16)
+    step = (torch.randint(0, 2, x.shape, generator=gen, device="cuda",
+                          dtype=torch.int16) * 2 - 1)
+    moved = x + (torch.where(xb == 0, xb, (xb.view(torch.int16) + step)
+                             .view(torch.bfloat16)).float() - xb.float())
+    block = lambda x_, c, ctx: mmodel._self_attention(p, x_, c, cfg, ctx)
+    at = lambda i: torch.full((B, 1), i, dtype=torch.int32, device="cuda")
+    with full_fp32():
+        ref = block(x, None, {"mode": "train"})[0][:, S:] - x[:, S:]
+        resp = (block(moved, None, {"mode": "train"})[0][:, S:]
+                - moved[:, S:] - ref).abs()
+        _, cache = block(x[:, :S], None, {"mode": "prefill", "ctx_len": S})
+        C = cache["pos"].shape[1]
+        want = torch.full((B, C), -1, dtype=torch.int32, device="cuda")
+        for q in range(max(0, S - C), S):
+            want[:, q % C] = q
+        pos_ok = torch.equal(cache["pos"], want)
+        dec, off, c_off = [], [], cache
+        for i in range(n_steps):
+            xi = x[:, S + i:S + i + 1]
+            y, cache = block(xi, cache, {"mode": "decode",
+                                         "positions": at(S + i)})
+            dec.append(y - xi)
+            want[:, (S + i) % C] = S + i
+            pos_ok &= torch.equal(cache["pos"], want)
+            y, c_off = block(xi, c_off, {"mode": "decode",
+                                         "positions": at(S + i + 1)})
+            off.append(y - xi)
+    err = (torch.cat(dec, 1) - ref).abs()
+    fault = (torch.cat(off, 1) - ref).abs()
+    scale = float(ref.abs().mean())
+    e_mean, e_max = float(err.mean()) / scale, float(err.max()) / scale
+    b_mean, b_max = float(resp.mean()) / scale, float(resp.max()) / scale
+    f_mean = float(fault.mean()) / scale
+    say(f"{tag} positions: the self-attention block alone in float32 at "
+        f"full width, prefill of {S} ({C} slots) + {n_steps} decode steps "
+        f"against the train block: pos {'exact' if pos_ok else 'WRONG'}; "
+        f"output mean |d| {e_mean:.3g}, max {e_max:.3g} of the mean "
+        f"|attention output|, within a one-ulp input move's (mean "
+        f"{b_mean:.3g}, max {b_max:.3g}); planted fault (positions off by "
+        f"one) mean {f_mean:.3g}; {card}")
+    check(pos_ok, f"{tag} decode's cache positions are not slot p % C = p")
+    check(e_mean <= b_mean and e_max <= b_max, f"{tag} the float32 decode "
+          f"block differs from the train block (mean {e_mean:.3g}, max "
+          f"{e_max:.3g}) by more than a one-ulp input move moves it (mean "
+          f"{b_mean:.3g}, max {b_max:.3g})")
+    check(f_mean > b_mean, f"{tag} the planted fault (positions off by one) "
+          f"stays inside the float32 bound: mean {f_mean:.3g} <= "
+          f"{b_mean:.3g}")
+    return dict(err=(e_mean, e_max), bound=(b_mean, b_max), fault=f_mean)
+
+
+def kernel_times(tag: str, call, plain, lib, bound, card: str, reps: int,
+                 atol: float, rtol: float) -> dict:
+    """A kernel's wrapper at one shape, held against the plain version on
+    the same inputs: finite, of the plain version's shape, within ``atol``
+    / ``rtol`` (``torch.allclose``), and a second call bit-equal; then per
+    call (CUDA events) the kernel, the plain version and the library call
+    (or None), beside the bound ``(ms, by, bytes)``."""
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+          and bool(torch.allclose(got.float(), want.float(), atol=atol,
+                                  rtol=rtol)),
+          f"{tag}: the kernel disagrees with its plain version (max |d| "
+          f"{err:.3g}, atol / rtol {atol:g} / {rtol:g})")
+    check(torch.equal(got, call()), f"{tag}: the kernel is not repeatable")
+    ms, plain_ms = cuda_ms(call, reps), cuda_ms(plain, max(1, reps // 5))
+    lib_ms = cuda_ms(lib, reps) if lib is not None else None
+    b_ms, by, nbytes = bound
+    say(f"[time] {tag}: per call {ms * 1e3:.2f} us ({b_ms / ms * 100:.1f}% "
+        f"of its bound {b_ms * 1e3:.3f} us, {by}, {nbytes} B), plain "
+        f"{plain_ms * 1e3:.2f} us, "
+        + (f"library {lib_ms * 1e3:.2f} us" if lib is not None
+           else "no library call") + f"; max |kernel - plain| {err:.3g} "
+        f"(atol / rtol {atol:g} / {rtol:g}), a second call bit-equal; "
+        + card)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
+def lm_stack_phase(card: str) -> dict:
+    """Phase 19: the rest of the LM stack at published widths on the card
+    (see the module docstring); fails at the first check that does not
+    hold. Returns the numbers PERF.md reports and the kernels line's
+    entries for the new shapes."""
+    from repro_torch.device import full_fp32
+    from repro_torch.embed import encoder as eenc
+    from repro_torch.embed.corpus import make_tokens
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import ROUTES, linear_scan, scan_route
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.labelstream import router
+    from repro_torch.learning.features import standardize
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models import model as mmodel
+    from repro_torch.models.params import tree_map
+    from repro_torch.scenarios import get_scenario, to_stream_config
+
+    res, dev = {}, torch.device("cuda")
+    gen = torch.Generator(device=dev)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- (a) recurrentgemma-2b: the ring and the RG-LRU step --------------
+    t_a = time.perf_counter()
+    cfg, cp, n = card_model("recurrentgemma-2b", 1901)
+    gen.manual_seed(1902)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 2560), generator=gen,
+                            device=dev)
+    say(f"[stack a] recurrentgemma-2b at full width and depth ({n} "
+        f"parameters drawn on the card in {time.perf_counter() - t_a:.1f} "
+        f"s): 4 prompts of 2560 tokens, past the {cfg.window}-token window, "
+        f"so prefill keeps a ring of {mmodel.cache_len(cfg, 2560)} slots")
+    res["rg"] = decode_check("[stack a]", cfg, cp, prompts, None, 16, card,
+                             1903)
+    check(res["rg"]["pre_n"][1] > 0, "[stack a] no linear_scan launch")
+    # the scan at prefill's shape: (4, 2560, 2560) float32 from h0
+    a = torch.rand((4, 2560, 2560), generator=gen, device=dev) * 0.5 + 0.5
+    b = torch.randn((4, 2560, 2560), generator=gen, device=dev)
+    h0 = torch.randn((4, 2560), generator=gen, device=dev)
+    route = scan_route(4, 2560, 2560, torch.float32)
+    # bit-equal to its route's plain version, as phase 9 holds the scan
+    k_scan = kernel_times(
+        f"linear_scan at recurrentgemma-2b's prefill (4, 2560, 2560) f32 "
+        f"with h0, {route} route", lambda: linear_scan(a, b, h0),
+        lambda: ROUTES[route][0](a, b, h0), None,
+        scan_bound_ms(4, 2560, 2560, 4, True), card, 20, 0.0, 0.0)
+    k_scan["launches"] = res["rg"]["pre_n"][1]
+    res["rg"]["positions"] = positions_gate("[stack a]", cfg, 2560, 16,
+                                            card, 1904)
+    del cp, prompts, a, b, h0
+    free()
+    say(f"[stack a] done in {time.perf_counter() - t_a:.1f} s")
+
+    # ---- (b) granite-moe-3b-a800m as the LM stream's encoder -------------
+    t_b = time.perf_counter()
+    name = "granite-moe-3b-a800m"
+    spec = get_scenario("lm_stream", {**LM_FULL, "embed.model": name})
+    scfg = to_stream_config(spec)
+    L, C = scfg.learner, scfg.n_classes
+    ec, F = L.embed, L.n_features
+    cfg, cp, n = card_model(name, 1911)
+    check(eenc.resolved_config(ec) == cfg, f"[stack b] lm_stream's "
+          f"EmbedSpec does not name the full-width {name}")
+    K = ec.bank_size // (2 * C)
+    hard = np.repeat(np.arange(2), C * K).astype(bool)
+    labels = np.tile(np.repeat(np.arange(C, dtype=np.int32), K), 2)
+    tokens, lengths = make_tokens(ec, labels, hard, C, cfg.vocab_size,
+                                  L.class_sep, L.hard_sep_scale)
+    proj = eenc.projection(ec, F, dev)
+
+    def bank_of(ec_, cp_, tok, lens):
+        E = eenc.encode(ec_, tok, lens, F, device=dev, params=cp_, proj=proj)
+        return standardize(E).reshape(2, C, K, F)
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = bank_of(ec, cp, tokens, lengths)
+    torch.cuda.synchronize()
+    bank_s, bank_n = time.perf_counter() - t0, _counts()
+    t0 = time.perf_counter()
+    again = bank_of(ec, cp, tokens, lengths)
+    torch.cuda.synchronize()
+    bank2_s = time.perf_counter() - t0
+    n_micro = ec.bank_size // ec.batch_size
+    check(torch.equal(bank, again) and bool(torch.isfinite(bank).all()),
+          "[stack b] the granite bank is not finite or not bit-repeatable")
+    check(bank_n == (cfg.n_layers * n_micro, 0), f"[stack b] the bank "
+          f"launched (flash, scan) = {bank_n}")
+    B = ec.batch_size
+    _, n_k, busy_us, _ = device_profile(lambda: eenc.encode(
+        ec, tokens[:B], lengths[:B], F, device=dev, params=cp, proj=proj))
+    say(f"[stack b] {name} at full width and depth ({n} parameters) as "
+        f"lm_stream's encoder: bank {tuple(bank.shape)} of {ec.bank_size} x "
+        f"{ec.seq_len} tokens in {bank_s:.2f} s ({bank2_s:.3f} s again: "
+        f"{ec.bank_size / bank2_s:.1f} tasks embedded/s), bit-equal; "
+        f"{bank_n[0]} flash launches ({bank_n[0] // n_micro} per "
+        f"micro-batch of {B}); a micro-batch {n_k} kernels, device busy "
+        f"{busy_us / 1e3:.1f} ms; {card}")
+    Hs, Ns = 120, 64
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = router.run_stream(scfg, Hs, n_reps=Ns, seed=0, bank=bank,
+                            device="cuda")
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    total = lambda k: int(out[k].sum().item())
+    lhs = total("arrived")
+    rhs = (total("done_all") + total("backlog_end") + total("in_flight_end")
+           + total("dropped"))
+    check(lhs == rhs and total("done") > 0 and total("model_known") > 0,
+          f"[stack b] lm_stream on the {name} bank: conservation "
+          f"{lhs} vs {rhs}, done {total('done')}, model_known "
+          f"{total('model_known')}")
+    m = router.stream_summary(scfg, out)
+    say(f"[stack b] lm_stream on the {name} bank: {Ns} reps x "
+        f"{scfg.n_shards} shards x {Hs} ticks in {stream_s:.2f} s "
+        f"({Hs / stream_s:.1f} ticks/s); conservation exact; accuracy "
+        f"{m['accuracy']:.4f}, model_known {total('model_known')}")
+    res["granite"] = dict(tasks_per_s=ec.bank_size / bank2_s,
+                          kernels=n_k, bank_flash=bank_n[0],
+                          ticks_per_s=Hs / stream_s)
+    del cp, bank, again, out
+    free()
+    # two layers at full width, card against CPU on the same parameters
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    gen.manual_seed(1912)
+    master = draw_on_card(mmodel.model_template(cfg2), gen)
+    cpu_master = tree_map(lambda t: t.cpu(), master, is_leaf=torch.is_tensor)
+    tok16 = torch.as_tensor(tokens[:16]).long()
+
+    def dispatch(ps, device, dtype):
+        ps = tree_map(lambda t: t.to(dtype), ps, is_leaf=torch.is_tensor)
+        x = ps["embed"][tok16.to(device)]
+        T, outs = x.shape[0] * x.shape[1], []
+        with full_fp32():
+            for (p,) in mmodel._unstack(ps["groups"], 2):
+                x, _ = mmodel._self_attention(p["attn"], x, None, cfg2,
+                                              {"mode": "train"})
+                h = mlayers.apply_norm(p["moe"]["norm"], x, cfg2.norm,
+                                       cfg2.norm_eps)
+                probs = torch.softmax((h.reshape(T, -1)
+                                       @ p["moe"]["router"]).float(), -1)
+                d = mlayers.moe_dispatch(probs, cfg2.moe_top_k,
+                                         mlayers.moe_capacity(cfg2, T))
+                outs.append({k: d[k].cpu() for k in ("topi", "dest", "keep")}
+                            | {"probs": probs.cpu()})
+                x = x + mlayers.apply_moe(p["moe"], h, cfg2)[0]
+        return outs
+
+    t0 = time.perf_counter()
+    g32, c32 = dispatch(master, dev, torch.float32), \
+        dispatch(cpu_master, "cpu", torch.float32)
+    for li, (g, c) in enumerate(zip(g32, c32)):
+        for k in ("topi", "dest", "keep"):
+            check(torch.equal(g[k], c[k]), f"[stack b] float32 layer "
+                  f"{li + 1}: the card's {k} differs from the CPU's")
+    g16, c16 = dispatch(master, dev, torch.bfloat16), \
+        dispatch(cpu_master, "cpu", torch.bfloat16)
+    flips, k8 = [], cfg2.moe_top_k
+    for li, (g, c) in enumerate(zip(g16, c16)):
+        for t in range(g["topi"].shape[0]):
+            on_card = set(g["topi"][t].tolist())
+            on_cpu = set(c["topi"][t].tolist())
+            if on_card == on_cpu:
+                continue
+            p = c["probs"][t].sort(descending=True).values
+            flips.append(f"layer {li + 1} token {t}: experts "
+                         f"{sorted(on_card - on_cpu)} in for "
+                         f"{sorted(on_cpu - on_card)}, CPU gap at the "
+                         f"{k8}th pick {float(p[k8 - 1] - p[k8]):.3g}")
+    n_dest = [int((g["dest"] != c["dest"]).sum()) for g, c in zip(g16, c16)]
+    per_layer = [sum(f.startswith(f"layer {li + 1} ") for f in flips)
+                 for li in range(2)]
+    say(f"[stack b] {name}, 2 layers at full width, 16 x {ec.seq_len} "
+        f"tokens, card against CPU on the same parameters: float32 topi, "
+        f"dest and keep equal in both layers; bfloat16: {len(flips)} routing "
+        f"flips of {2 * len(tok16.flatten())} token routings ({per_layer} "
+        f"by layer; a flip in layer 1 changes the token's output, so layer "
+        f"2 inherits it), dest differs in {n_dest} slots (a flip moves the "
+        f"ranks after it in its experts' runs); CPU "
+        f"{time.perf_counter() - t0:.1f} s")
+    for f in flips:
+        say(f"[stack b]   flip: {f}")
+    res["granite"]["flips"] = len(flips)
+    del master, cpu_master
+    free()
+    say(f"[stack b] done in {time.perf_counter() - t_b:.1f} s")
+
+    # ---- (c) whisper-base: the encoder and cross-attention ---------------
+    t_c = time.perf_counter()
+    name = "whisper-base"
+    spec = get_scenario("lm_stream", {**LM_FULL, "embed.model": name})
+    ec = to_stream_config(spec).learner.embed
+    cfg, cp, n = card_model(name, 1921)
+    check(eenc.resolved_config(ec) == cfg, "[stack c] wrong config")
+    tokens, lengths = make_tokens(ec, labels, hard, C, cfg.vocab_size,
+                                  L.class_sep, L.hard_sep_scale)
+    proj = eenc.projection(ec, F, dev)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with flash_by_shape({}) as w_tally:
+        bank = bank_of(ec, cp, tokens, lengths)
+    torch.cuda.synchronize()
+    bank_s, bank_n = time.perf_counter() - t0, _counts()
+    again = bank_of(ec, cp, tokens, lengths)
+    check(torch.equal(bank, again) and bool(torch.isfinite(bank).all()),
+          "[stack c] the whisper bank is not finite or not bit-repeatable")
+    per = cfg.n_encoder_layers + 2 * cfg.n_layers
+    check(bank_n == (per * n_micro, 0), f"[stack c] the bank launched "
+          f"(flash, scan) = {bank_n}, want ({per * n_micro}, 0)")
+    say(f"[stack c] {name} at full width and depth ({n} parameters): bank "
+        f"of {ec.bank_size} x {ec.seq_len} tokens through the encoder over "
+        f"{cfg.encoder_seq} zero stub frames in {bank_s:.2f} s "
+        f"({ec.bank_size / bank_s:.1f} tasks/s), bit-equal; {bank_n[0]} "
+        f"flash launches ({per} per micro-batch: {cfg.n_encoder_layers} "
+        f"non-causal encoder, {cfg.n_layers} causal self, {cfg.n_layers} "
+        f"cross with Sq {ec.seq_len} != Sk {cfg.encoder_seq}); by shape "
+        f"(B, Sq, Sk, Hq, Hkv, D, causal): {w_tally}; {card}")
+    gen.manual_seed(1922)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                            device=dev)
+    frames = torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    res["whisper"] = decode_check("[stack c]", cfg, cp, prompts, frames, 8,
+                                  card, 1923)
+    res["whisper"]["positions"] = positions_gate("[stack c]", cfg, 64, 8,
+                                                 card, 1924)
+    res["whisper"]["bank_flash"] = bank_n[0]
+    res["whisper"]["tally"] = w_tally
+    res["whisper"]["tasks_per_s"] = ec.bank_size / bank_s
+    del cp, bank, again
+    free()
+    say(f"[stack c] done in {time.perf_counter() - t_c:.1f} s")
+
+    # ---- (d) mixtral-8x7b and llama-3.2-vision-11b, one group deep --------
+    t_d = time.perf_counter()
+    for key, name, cut, seed in (
+            ("mixtral", "mixtral-8x7b", dict(n_layers=1,
+                                             capacity_factor=8.0), 1931),
+            ("vision", "llama-3.2-vision-11b", dict(n_layers=5), 1941)):
+        cfg, cp, n = card_model(name, seed, **cut)
+        gen.manual_seed(seed + 1)
+        prompts = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                                device=dev)
+        cs = (torch.randn((4, cfg.n_img_tokens, cfg.d_model), generator=gen,
+                          device=dev).to(torch.bfloat16)
+              if cfg.n_img_tokens else None)
+        say(f"[stack d] {name} at full width, {cfg.n_layers} layer(s) "
+            f"({cfg.blocks()}; {n} parameters)"
+            + (", capacity factor raised to the expert count so that no "
+               "token is dropped, as tests/test_models.py does"
+               if cfg.n_experts else ""))
+        tally = {}
+        res[key] = decode_check(f"[stack d {key}]", cfg, cp, prompts, cs, 4,
+                                card, seed + 2, tally)
+        res[key]["tally"] = tally
+        res[key]["positions"] = positions_gate(f"[stack d {key}]", cfg, 256,
+                                               4, card, seed + 3)
+        del cp, cs
+        free()
+    say(f"[stack d] done in {time.perf_counter() - t_d:.1f} s")
+
+    # ---- the kernel at the new shapes --------------------------------------
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tsp = lambda x: x.transpose(1, 2)
+    kern = {"linear_scan_prefill": k_scan}
+    # each shape's launches as the wrapper counted them in the run that made
+    # them: whisper's first bank (its encoder, and its cross-attention over
+    # the 1500 frames) and the VLM's first prefill (its one cross layer)
+    for key, (Bq, Hq, Hkv, Sq, Sk, D), tally in (
+            ("flash_attention_encoder", (64, 8, 8, 1500, 1500, 64), w_tally),
+            ("flash_attention_cross_bank", (64, 8, 8, 48, 1500, 64),
+             w_tally),
+            ("flash_attention_cross", (4, 32, 8, 256, 1600, 128),
+             res["vision"]["tally"])):
+        launches = tally.get((Bq, Sq, Sk, Hq, Hkv, D, False), 0)
+        check(launches > 0, f"[stack] {key}: the main path made no launch "
+              f"at (B {Bq}, Sq {Sq}, Sk {Sk}, {Hq}/{Hkv}, D {D}); by shape "
+              f"{tally}")
+        q = torch.randn((Bq, Sq, Hq, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((Bq, Sk, Hkv, D), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        # bfloat16 at phase 9's flash tolerance
+        kern[key] = kernel_times(
+            f"flash_attention {key[16:]} ({Bq}, Sq {Sq}, Sk {Sk}, {Hq}/{Hkv} "
+            f"heads, D {D}) bf16 non-causal, {launches} launches at this "
+            f"shape", lambda: flash_attention(q, k, v, causal=False),
+            lambda: tsp(attention_ref(tsp(q), tsp(k), tsp(v), causal=False)),
+            lambda: sdpa(tsp(q), tsp(k), tsp(v), enable_gqa=True),
+            flash_bound_ms(Bq, Hq, Hkv, Sq, Sk, D, 2, False, 0), card, 20,
+            2e-2, 2e-2)
+        kern[key]["launches"] = launches
+        del q, k, v
+        free()
+    res["kernels"] = kern
+    return res
+
+
+def group_hidden(x, gp, group, mcfg):
+    """One stacked group of the model's train-mode forward on x."""
+    from repro_torch.models import model as mmodel
+    return mmodel._group_body(x, x.new_zeros(()), gp, None, group, mcfg,
+                              {"mode": "train", "mlstm_impl": "chunked"})[0]
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -1880,7 +2531,7 @@ def lm_depth(card: str):
         outs = []
         with full_fp32():
             for gp in mmodel._unstack(ps["groups"], n_full):
-                x = mmodel._group_body(x, gp, group, mcfg, "chunked")
+                x = group_hidden(x, gp, group, mcfg)
                 outs.append(mlayers.apply_norm(
                     ps["final_norm"], x, mcfg.norm, mcfg.norm_eps
                 ).float().cpu())
@@ -1933,13 +2584,23 @@ def main():
         launch_times(sys.argv[2])
         return
     if len(sys.argv) == 2 and sys.argv[1] in ("--phase17", "--phase18",
-                                               "--lm-depth"):
+                                               "--phase19", "--lm-depth"):
         sys.path.insert(0, str(ROOT / "src"))
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
         say(card)
         if sys.argv[1] == "--lm-depth":
             lm_depth(card)
+            return
+        if sys.argv[1] == "--phase19":
+            from repro_torch.kernels import _build
+            t0 = time.perf_counter()
+            _build.build(("flash_attention", "linear_scan"))
+            say(f"[build] flash_attention, linear_scan "
+                f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            say(json.dumps(lm_stack_phase(card)["kernels"]))
+            say(f"[phase 19] done in {time.perf_counter() - t0:.1f} s")
             return
         from repro_torch.scenarios import smoke
         check(smoke.main(["--device", "cuda"]) == 0,
@@ -2959,7 +3620,7 @@ def main():
         mrec.linear_scan = scan or saved[1]
         try:
             return torch.cat([forward(cp10, cfg10, tok[i:i + Bm],
-                                      logits_mode="hidden")
+                                      logits_mode="hidden")[0]
                               for i in range(0, len(tok), Bm)])
         finally:
             mlayers.flash_attention, mrec.linear_scan = saved
@@ -3064,7 +3725,8 @@ def main():
     audit = GemmAudit()
     with full_fp32(), torch.no_grad(), audit:
         for bi, bkind in enumerate(group):
-            xb = mmodel.apply_block(gp0[bi], bkind, xb, cfg10)
+            xb = mmodel.apply_block(gp0[bi], bkind, xb, None, cfg10,
+                                    {"mode": "train"})[0]
     gemm_far = max(r[1] for r in audit.rows)
     gemm_fault = min(r[2] for r in audit.rows)
     say(f"[lm] the bfloat16 GEMMs of blocks {', '.join(group)} at full width "
@@ -3903,6 +4565,15 @@ def main():
     torch.cuda.empty_cache()
     ev18 = grid_events_phase(card)
 
+    # ---- phase 19: the rest of the LM stack -------------------------------
+    say(f"[phase 19] starts at {time.perf_counter() - t_smoke:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    eenc._params.cache_clear()              # phases 10 and 17's parameters
+    gc.collect()
+    torch.cuda.empty_cache()
+    st19 = lm_stack_phase(card)["kernels"]
+
     # ds_estep: the public call at the stream's refresh shape (the task
     # route's warp mode), and the task kernel at the offline EM's C4 shape
     # (block mode, the table in shared memory); entropy_scores: the narrow
@@ -4027,7 +4698,23 @@ def main():
         "ms": sb_t["chunked"]["ms"], "plain_ms": sb_t["chunked"]["plain_ms"],
         "bound_ms": sb_t["chunked"]["bound_ms"],
         "bound_by": sb_t["chunked"]["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "flash_attention_encoder", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        **st19["flash_attention_encoder"]}, {
+        "name": "flash_attention_cross", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        **st19["flash_attention_cross"]}, {
+        "name": "flash_attention_cross_bank", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        **st19["flash_attention_cross_bank"]}, {
+        "name": "linear_scan_prefill", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan.py:44",
+        **st19["linear_scan_prefill"]}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind,
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,7 @@ the layer stack, tiled (and truncated) to ``n_layers``. Block kinds:
 ``attn`` (self-attention + MLP, full or sliding window), ``xattn``
 (attention + cross-attention), ``moe`` (attention + mixture of experts),
 ``mlstm`` / ``slstm`` (xLSTM) and ``rglru`` (RG-LRU + MLP, RecurrentGemma).
-The port's model runs ``attn``, ``rglru``, ``mlstm`` and ``slstm``; the
-other kinds are described here so that every registered architecture
-resolves.
+The port's model runs all of them.
 """
 from __future__ import annotations
 

@@ -1,10 +1,8 @@
 """Architecture registry (copy of ``src/repro/configs/registry.py``).
 
 ``recurrentgemma-2b`` has its own module; the other architectures are
-copied here as data. The port's model runs the ``attn``, ``rglru``,
-``mlstm`` and ``slstm`` blocks (recurrentgemma-2b and xlstm-125m);
-building a model of any other block kind raises ``NotImplementedError``
-(see :mod:`repro_torch.models.model`).
+copied here as data. The port's model runs all ten (see
+:mod:`repro_torch.models.model`).
 """
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _rgemma

@@ -87,10 +87,23 @@ def projection(ec: EmbedConfig, n_features: int, device="cuda"):
                        device_key(device))
 
 
+def _cross_src(cfg, B, device):
+    """The zero cross source of the architectures that need one (whisper's
+    encoder frames, the VLM's image tokens), (B, T, d) bfloat16: the task
+    text carries the signal. None for the others."""
+    n = (cfg.encoder_seq if cfg.is_encoder_decoder else cfg.n_img_tokens)
+    if not n:
+        return None
+    return torch.zeros((B, n, cfg.d_model), dtype=torch.bfloat16,
+                       device=device)
+
+
 def _embed_batch(cfg, params, tokens, lengths, pooling, proj):
     """(B, T) tokens + (B,) lengths -> (B, F) float32 features."""
     B, T = tokens.shape
-    hidden = forward(params, cfg, tokens, mode="train", logits_mode="hidden")
+    hidden, _, _ = forward(params, cfg, tokens, mode="train",
+                           logits_mode="hidden",
+                           cross_src=_cross_src(cfg, B, tokens.device))
     with full_fp32():
         if pooling == "mean":
             mask = (torch.arange(T, device=tokens.device)[None, :]

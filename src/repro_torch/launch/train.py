@@ -8,9 +8,10 @@
 Runs :class:`repro_torch.training.trainer.Trainer` on one device (the card
 by default; ``--device cpu`` runs the kernels' plain versions) over the
 synthetic corpus. ``--reduced`` trains the smoke-scale config of the same
-family. The port's model runs the ``attn`` and ``rglru`` blocks, so of the
-registered architectures only recurrentgemma-2b trains; the others raise
-``NotImplementedError``.
+family. Every registered architecture builds; the synthetic corpus feeds
+token batches only, so the cross-attending ones (whisper-base,
+llama-3.2-vision-11b), whose loss needs a ``cross_src``, do not train
+here.
 """
 from __future__ import annotations
 

@@ -1,3 +1,3 @@
-"""The port's LM stack: parameter templates, layers, the recurrent blocks
-(RG-LRU, mLSTM, sLSTM) and the model forward (``attn``, ``rglru``,
-``mlstm`` and ``slstm`` blocks, train mode)."""
+"""The port's LM stack: parameter templates, layers (attention, MLP, MoE),
+the recurrent blocks (RG-LRU, mLSTM, sLSTM), the model forward in train,
+prefill and decode mode with its caches, and the step functions."""

@@ -1,13 +1,22 @@
 """Transformer layers (port of ``src/repro/models/layers.py``): norms, RoPE,
-GQA attention, the attention block's projections and the MLP.
+GQA attention, the attention block's projections, the MLP and the
+capacity-routed MoE.
 
 Tensors keep the reference's layouts: activations (B, S, d), attention
-operands (B, S, H, D). :func:`attention` masks by index through the
+operands (B, S, H, D). :func:`attention` picks its route from the call, as
+the reference's ``impl`` does: masks that the index gives (train and
+prefill, whose positions are the index; cross-attention and the encoder,
+whose masks do not depend on positions) go through the
 :mod:`repro_torch.kernels.flash_attention` wrapper (the Hopper kernel on
-the card, its plain version on the CPU), which takes the place of the
-reference's jnp ``_attn_direct`` / ``_attn_flash_xla`` / ``_attn_band``.
-Masking by arbitrary positions (``_scores_mask``) runs the plain
-materialized version and only on the CPU. MoE is not ported.
+the card, its plain version on the CPU), in place of the reference's jnp
+``_attn_flash_xla`` / ``_attn_band`` / short-shape ``_attn_direct``;
+``impl="direct"`` (decode over a cache, whose slots carry positions) is
+the reference's ``_attn_direct``, plain materialized attention masked by
+position on either device.
+
+:func:`apply_moe` is the reference's ``apply_moe`` with ``groups=1``.
+``apply_moe_shardmap`` and ``_moe_local`` dispatch inside a device mesh
+and stay with the multi-device work (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -87,32 +96,40 @@ def _attention_by_position(q, k, v, q_pos, k_pos, causal, window):
     return o.reshape(B, Sq, Hq, D).to(v.dtype)
 
 
-def attention(q, k, v, *, q_pos=None, k_pos=None, causal=True, window=0):
+def attention(q, k, v, *, q_pos=None, k_pos=None, causal=True, window=0,
+              impl="auto"):
     """GQA attention. q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D). Returns
     (B, Sq, Hq, D) in ``v``'s dtype.
 
-    Positions default to the index (``arange``), the train-mode case, and
-    go through the flash kernel's wrapper. Explicit position vectors
-    ((S,) or (B, S)) that equal the index take the same route; any other
-    positions are masked by value, on the CPU only (the kernel masks by
-    index)."""
+    ``impl="auto"`` goes through the flash kernel's wrapper, which masks by
+    index: the positions are the index (None, or vectors equal to
+    ``arange(S)``: train, prefill), or the mask does not depend on them
+    (no causality, no window, no ``k_pos``: cross-attention, the encoder);
+    other positions raise on either device. ``impl="direct"`` masks by the
+    position vectors ((S,) or (B, S), default the index; a negative
+    ``k_pos`` marks an empty cache slot) on either device: the reference's
+    decode route."""
+    if impl not in ("auto", "direct"):
+        raise ValueError(f"attention impl must be 'auto' or 'direct', got "
+                         f"{impl!r}")
     B, Sq = q.shape[:2]
     Sk = k.shape[1]
-    if q_pos is not None or k_pos is not None:
-        q_pos = (torch.arange(Sq, device=q.device) if q_pos is None
-                 else q_pos)
-        k_pos = (torch.arange(Sk, device=k.device) if k_pos is None
-                 else k_pos)
-        if not (_is_index(q_pos, Sq) and _is_index(k_pos, Sk)):
-            if q.device.type != "cpu":
-                raise ValueError("attention on the card masks by index: "
-                                 "positions must equal arange(S)")
-            q_pos = q_pos.expand(B, Sq) if q_pos.dim() == 1 else q_pos
-            k_pos = k_pos.expand(B, Sk) if k_pos.dim() == 1 else k_pos
-            return _attention_by_position(q, k, v, q_pos, k_pos, causal,
-                                          window)
-    o = flash_attention(q, k, v, causal=causal, window=window)
-    return o.to(v.dtype)
+    if impl == "auto":
+        by_index = ((q_pos is None or _is_index(q_pos, Sq))
+                    and (k_pos is None or _is_index(k_pos, Sk)))
+        # without causality or a window only k_pos (empty slots) shapes it
+        free = k_pos is None and not causal and window == 0
+        if not (by_index or free):
+            raise ValueError("attention impl='auto' masks by index: "
+                             "positions must equal arange(S) "
+                             "(impl='direct' masks by position)")
+        return flash_attention(q, k, v, causal=causal,
+                               window=window).to(v.dtype)
+    q_pos = torch.arange(Sq, device=q.device) if q_pos is None else q_pos
+    k_pos = torch.arange(Sk, device=k.device) if k_pos is None else k_pos
+    q_pos = q_pos.expand(B, Sq) if q_pos.dim() == 1 else q_pos
+    k_pos = k_pos.expand(B, Sk) if k_pos.dim() == 1 else k_pos
+    return _attention_by_position(q, k, v, q_pos, k_pos, causal, window)
 
 
 # ------------------------------------------------------- attention block ----
@@ -178,8 +195,9 @@ def sigmoid(x):
 
 
 def silu(x):
-    """``jax.nn.silu``: x * sigmoid(x), each op in x's dtype."""
-    return x * torch.sigmoid(x)
+    """``jax.nn.silu``: x * :func:`sigmoid` (x), each op in x's dtype (in
+    bfloat16 ``x * torch.sigmoid(x)`` differs in ~28% of the outputs)."""
+    return x * sigmoid(x)
 
 
 def act_fn(cfg):
@@ -192,3 +210,92 @@ def apply_mlp(p, x, cfg):
     h = x @ p["w_up"]
     h = act(x @ p["w_gate"]) * h if cfg.mlp_gated else act(h)
     return h @ p["w_down"]
+
+
+# ------------------------------------------------------------------ moe ----
+
+def moe_template(cfg):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": PSpec((d, E), ("embed", "experts_dim")),
+        "w_gate": PSpec((E, d, f), ("experts", "embed", "ffn")),
+        "w_up": PSpec((E, d, f), ("experts", "embed", "ffn")),
+        "w_down": PSpec((E, f, d), ("experts", "ffn", "embed")),
+        "norm": norm_template(d, cfg.norm),
+    }
+
+
+def moe_capacity(cfg, n_tokens):
+    """Slots per expert: the reference's expression, float floor division
+    included."""
+    E, k = cfg.n_experts, cfg.moe_top_k
+    return int(max(8, -(-k * n_tokens * cfg.capacity_factor // E)))
+
+
+def moe_dispatch(probs, k, C):
+    """Top-k routing and capacity dispatch of (T, E) float32 router
+    probabilities. Returns a dict of ``topw`` (T, k) float32 renormalized
+    weights and ``topi`` (T, k) experts, best first, a tie to the lower
+    expert (``jax.lax.top_k``'s order: a stable descending sort); the
+    T * k slots in expert order (a stable argsort of the flattened
+    ``topi``): ``order``, each slot's rank in its expert's run, ``keep``
+    (rank < C), ``dest`` (expert * C + rank, or the drop row E * C) and
+    ``tok`` (the slot's token)."""
+    T, E = probs.shape
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = srt.values[:, :k], srt.indices[:, :k]
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    slots = topi.reshape(T * k)
+    order = torch.argsort(slots, stable=True)
+    sorted_e = slots[order]
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank = torch.arange(T * k, device=probs.device) - first
+    keep = rank < C
+    dest = torch.where(keep, sorted_e * C + rank,
+                       torch.full_like(rank, E * C))
+    return dict(topw=topw, topi=topi, order=order, keep=keep, dest=dest,
+                tok=order // k)
+
+
+def apply_moe(p, x, cfg):
+    """Capacity-routed top-k MoE on (B, S, d) x: the reference's
+    ``apply_moe`` with ``groups=1`` (one dispatch over all B * S tokens).
+    Returns (y (B, S, d) in x's dtype, the float32 switch-style aux loss).
+
+    Each expert takes at most C slots (:func:`moe_capacity`) in token
+    order; overflowing slots go to a drop row that is thrown away (several
+    writes land there; which one wins does not matter). The combine adds
+    a token's k weighted expert outputs, each rounded to x's dtype, into a
+    zero row in ascending expert order, one rounding per add: the order in
+    which the reference's scatter-add visits them (its slots are sorted by
+    expert), and no float atomics."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    T = B * S
+    xf = x.reshape(T, d)
+    probs = torch.softmax((xf @ p["router"]).to(torch.float32), dim=-1)
+    C = moe_capacity(cfg, T)
+    r = moe_dispatch(probs, k, C)
+    dest, keep, order = r["dest"], r["keep"], r["order"]
+    xe = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    xe = xe.index_put((dest,), xf[r["tok"]])
+    xe = xe[:-1].reshape(E, C, d)
+    act = act_fn(cfg)
+    h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"]).reshape(E * C, d)
+    w_slot = r["topw"].reshape(T * k)[order]
+    ys = torch.where(keep[:, None], ye[torch.clamp(dest, max=E * C - 1)],
+                     torch.zeros((), dtype=ye.dtype, device=ye.device))
+    contrib = (ys * w_slot[:, None]).to(x.dtype)         # slots, expert order
+    # each token's k slots, in the order the sorted slots visit them
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(T * k, device=x.device)
+    pos = torch.sort(pos.reshape(T, k), dim=-1).values
+    parts = contrib[pos]                                 # (T, k, d)
+    out = torch.zeros((T, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        out = out + parts[:, j]
+    me = probs.mean(0)
+    ce = torch.bincount(r["topi"].reshape(-1), minlength=E)
+    aux = E * torch.sum(me * (ce.to(torch.float32) / (T * k)))
+    return out.reshape(B, S, d), aux

@@ -63,19 +63,21 @@ def count_params(template) -> int:
 
 
 def _init_leaf(p: PSpec, gen: torch.Generator):
+    """One leaf, drawn on the generator's device."""
+    f32 = dict(dtype=torch.float32, device=gen.device)
     if p.init == "zeros":
-        return torch.zeros(p.shape, dtype=torch.float32)
+        return torch.zeros(p.shape, **f32)
     if p.init == "ones":
-        return torch.ones(p.shape, dtype=torch.float32)
+        return torch.ones(p.shape, **f32)
     if p.init == "lru_lambda":
         # RG-LRU Lambda: the decay a = exp(-c softplus(lam)) lies in
         # [0.9, 0.999] at init: lam = softplus^-1(-log(u) / (2 c)) with
         # u ~ U[0.9^2, 0.999^2) and c = 8
         lo, hi = 0.9 ** 2, 0.999 ** 2
-        u = torch.rand(p.shape, generator=gen, dtype=torch.float32)
+        u = torch.rand(p.shape, generator=gen, **f32)
         u = u * (hi - lo) + lo
         return torch.log(torch.expm1(-torch.log(u) / (2 * 8.0)))
-    z = torch.randn(p.shape, generator=gen, dtype=torch.float32)
+    z = torch.randn(p.shape, generator=gen, **f32)
     if p.init == "embed":
         return z * 0.02
     # fan_in (conv too): normal scaled by 1/sqrt(fan_in)

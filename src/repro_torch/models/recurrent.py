@@ -7,7 +7,9 @@ sLSTM (xLSTM) (port of ``src/repro/models/recurrent.py``). Every block has
 :func:`repro_torch.kernels.linear_scan.linear_scan` (the Hopper kernel on
 the card, its plain version on the CPU), in place of the reference's
 ``jax.lax.associative_scan``; the two sum in different orders, so they
-agree to float32 rounding, not bit for bit.
+agree to float32 rounding, not bit for bit. A single step (S == 1,
+decode) is the reference's elementwise ``a * h + b`` from the carried
+state, with no scan.
 
 The mLSTM has the reference's two forms: the sequential oracle
 :func:`_mlstm_seq` (and the S == 1 path) and the chunkwise-parallel
@@ -88,7 +90,10 @@ def apply_rglru(p, x, state, cfg):
     a = torch.exp(log_a)
     b = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
          * (gate_i * uf))
-    h = linear_scan(a, b, state["h"])
+    if x.shape[1] == 1:                       # decode: one step
+        h = (a[:, 0] * state["h"] + b[:, 0])[:, None]
+    else:
+        h = linear_scan(a, b, state["h"])
     y = (h.to(x.dtype) * g) @ p["w_out"]
     return y, {"h": h[:, -1], "conv": conv_state}
 

@@ -1,6 +1,6 @@
 """Step functions (port of ``src/repro/models/stepfn.py``): the token
-cross entropy, the loss function and the train step with microbatch
-accumulation.
+cross entropy, the loss function, the train step with microbatch
+accumulation, and the serving steps prefill and decode.
 
 The loss runs through :func:`repro_torch.kernels.xent.streaming_xent` (the
 Hopper forward and backward kernels on the card, the plain versions on the
@@ -9,8 +9,10 @@ loss with ``jax.nn.logsumexp`` and ``take_along_axis``. Gradients come
 from ``torch.autograd.grad`` over the float32 master parameters, with the
 forward and the backward (remat's recompute included) inside
 :func:`repro_torch.device.full_fp32`, so the backward's products run as
-the forward's do whatever the global matmul settings are. ``prefill`` and
-``decode`` are not ported yet (ROADMAP A12c).
+the forward's do whatever the global matmul settings are. The reference's
+``attn_impl``, ``constrain``, ``moe_groups``, ``mesh`` and ``opt``
+arguments shard or retune the step over a device mesh and stay with the
+multi-device work (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -38,12 +40,13 @@ def softmax_xent(logits, targets, ignore_id=-1):
 
 def make_loss_fn(cfg, *, remat=True, aux_weight=0.01):
     """loss_fn(params, batch) -> (loss + aux_weight * aux, {"loss", "aux"});
-    the ported blocks have no auxiliary loss, so aux is 0."""
+    ``aux`` is the MoE blocks' load-balancing loss (0 without MoE), and
+    ``batch["cross_src"]`` the cross-attending models' source."""
     def loss_fn(params, batch):
-        logits = forward(params, cfg, batch["tokens"], mode="train",
-                         remat=remat)
+        logits, _, aux = forward(params, cfg, batch["tokens"], mode="train",
+                                 cross_src=batch.get("cross_src"),
+                                 remat=remat)
         loss = softmax_xent(logits, batch["targets"])
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
     return loss_fn
@@ -109,11 +112,28 @@ def make_train_step(cfg, optimizer, *, microbatches=1, remat=True,
     return train_step
 
 
-def make_prefill_step(cfg, **_):
-    raise NotImplementedError("prefill (and its caches) is not ported yet "
-                              "(ROADMAP A12c)")
+def make_prefill_step(cfg):
+    """prefill(params, batch) -> (last logits (B, V) float32, cache): the
+    context ``batch["tokens"]`` (B, S) (and ``batch["cross_src"]``) run in
+    prefill mode. Pass bfloat16 parameters (``compute_params``) to cast
+    the float32 masters once instead of at every call."""
+    def prefill(params, batch):
+        logits, cache, _ = forward(params, cfg, batch["tokens"],
+                                   mode="prefill",
+                                   cross_src=batch.get("cross_src"),
+                                   logits_mode="last")
+        return logits[:, 0], cache
+
+    return prefill
 
 
-def make_decode_step(cfg, **_):
-    raise NotImplementedError("decode (and its caches) is not ported yet "
-                              "(ROADMAP A12c)")
+def make_decode_step(cfg):
+    """decode(params, cache, tokens (B, 1), positions (B,)) -> (logits
+    (B, V) float32, new cache): one token per row at its position."""
+    def decode(params, cache, tokens, positions):
+        logits, cache, _ = forward(params, cfg, tokens, mode="decode",
+                                   positions=positions, cache=cache,
+                                   logits_mode="last")
+        return logits[:, 0], cache
+
+    return decode

@@ -346,6 +346,30 @@ def test_flash_attention_kernel_model_layout(B, Hq, Hkv, S, D, window):
                  seed=S + D, heads_first=False)
 
 
+# the shapes the rest of the LM stack gives the kernel, (B, S, H, D)
+# layout: whisper-base's encoder (non-causal over 1500 frames), its
+# cross-attention at prefill and decode (Sq != Sk, Sk = 1500 not a multiple
+# of 64), llama-3.2-vision-11b's cross-attention over 1600 image tokens
+# (GQA 32/8, D = 128), granite-moe-3b-a800m's causal self-attention (GQA
+# 24/8, D = 64), and GQA 24/8 and 32/8 at ragged lengths without a mask
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal", [
+    (2, 8, 8, 1500, 1500, 64, False),
+    (4, 8, 8, 48, 1500, 64, False),
+    (4, 8, 8, 1, 1500, 64, False),
+    (2, 32, 8, 48, 1600, 128, False),
+    (4, 32, 8, 1, 1600, 128, False),
+    (4, 24, 8, 48, 48, 64, True),
+    (2, 24, 8, 37, 1500, 64, False),
+    (1, 32, 8, 130, 130, 128, False),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_cross_and_encoder_shapes(B, Hq, Hkv, Sq, Sk,
+                                                         D, causal, dtype):
+    _check_flash(B, Hq, Hkv, Sq, Sk, D, causal, 0, dtype,
+                 seed=Sq + Sk + D, heads_first=False)
+
+
 @pytest.mark.cuda
 def test_flash_attention_wrapper_rejects_bad_inputs():
     dev = _card()

@@ -64,6 +64,9 @@ from repro_torch.models import recurrent as tr  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
     count_params, init_params, leaves, params_from_numpy, tree_map,
 )
+from repro_torch.models.stepfn import (  # noqa: E402
+    make_decode_step, make_prefill_step,
+)
 
 RG = "recurrentgemma-2b"
 BF = torch.bfloat16
@@ -340,7 +343,8 @@ def test_bf16_attention_rounds_p_as_reference_direct(shape, window, pos):
                          impl="direct")] + list(vjp(js[3]))
     q, k, v = (x.clone().requires_grad_(True) for x in ts[:3])
     o = tl.attention(q, k, v, q_pos=torch.from_numpy(qp),
-                     k_pos=torch.from_numpy(kp), causal=True, window=window)
+                     k_pos=torch.from_numpy(kp), causal=True, window=window,
+                     impl="auto" if pos == "index" else "direct")
     got = [o.detach()] + list(torch.autograd.grad(o, (q, k, v), ts[3]))
     for name, x, y in zip(("o", "dq", "dk", "dv"), got, want):
         assert x.dtype == BF and tuple(x.shape) == tuple(y.shape), name
@@ -354,7 +358,8 @@ def test_bf16_attention_rounds_p_as_reference_direct(shape, window, pos):
 
 def test_attention_masks_by_position_on_cpu():
     """Positions other than the index (a batch offset, empty k slots
-    marked -1) take the plain masked path, as ``_scores_mask``."""
+    marked -1) are masked by value with ``impl="direct"``, as
+    ``_scores_mask``; ``impl="auto"`` (the kernel's route) refuses them."""
     qj, qt = _pair((2, 6, 4, 16), 21)
     kj, kt = _pair((2, 9, 1, 16), 22)
     vj, vt = _pair((2, 9, 1, 16), 23)
@@ -367,8 +372,12 @@ def test_attention_masks_by_position_on_cpu():
                             window=window, impl="direct")
         got = tl.attention(qt, kt, vt, q_pos=torch.from_numpy(q_pos),
                            k_pos=torch.from_numpy(k_pos), causal=True,
-                           window=window)
+                           window=window, impl="direct")
         np.testing.assert_allclose(_np(got), _np(want), atol=2e-6, rtol=2e-6)
+        with pytest.raises(ValueError, match="masks by index"):
+            tl.attention(qt, kt, vt, q_pos=torch.from_numpy(q_pos),
+                         k_pos=torch.from_numpy(k_pos), causal=True,
+                         window=window)
 
 
 # ----------------------------------------------------------- blocks ----
@@ -406,7 +415,8 @@ def test_rglru_and_attn_blocks_equal_reference_op_by_op():
         for idx, kind in ((0, "rglru"), (2, "attn")):
             pj, pt = _bf16_block(P, tp, idx)
             want = jm.apply_block(pj, kind, xj, None, jcfg, ctx)[0]
-            got = tm.apply_block(pt, kind, xt, tcfg)
+            got = tm.apply_block(pt, kind, xt, None, tcfg,
+                                 {"mode": "train"})[0]
             _close(got, want, 5e-3, 0.15)
 
 
@@ -438,7 +448,7 @@ def test_forward_matches_reference(n_layers, logits_mode):
     toks = np.random.default_rng(n_layers).integers(
         0, 256, (4, 16)).astype(np.int32)
     got = tm.forward(tp, tcfg, torch.from_numpy(toks),
-                     logits_mode=logits_mode).numpy()
+                     logits_mode=logits_mode)[0].numpy()
     with jax.disable_jit():
         eager = np.asarray(jm.forward(P, jcfg, jnp.asarray(toks),
                                       logits_mode=logits_mode,
@@ -452,20 +462,31 @@ def test_forward_matches_reference(n_layers, logits_mode):
 
 
 def test_forward_last_logits_and_unported_kinds():
+    """Last-position logits; prefill + decode and the MoE and
+    encoder-decoder templates, which raised before they were ported, now
+    run (their parity with the reference is in tests/test_torch_decode.py
+    and tests/test_torch_moe_xattn.py)."""
     jcfg, tcfg = _configs(3)
     _, tp = _params(3)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (2, 8)).astype(np.int32))
-    last = tm.forward(tp, tcfg, toks, logits_mode="last")
-    full = tm.forward(tp, tcfg, toks, logits_mode="all")
+    last = tm.forward(tp, tcfg, toks, logits_mode="last")[0]
+    full, cache, aux = tm.forward(tp, tcfg, toks, logits_mode="all")
     assert last.shape == (2, 1, 256)
     assert torch.equal(last[:, 0], full[:, -1])
-    with pytest.raises(NotImplementedError):
+    assert cache is None and float(aux) == 0.0
+    with pytest.raises(ValueError, match="positions"):
         tm.forward(tp, tcfg, toks, mode="decode")
-    with pytest.raises(NotImplementedError, match="A12d"):
-        tm.model_template(reduced(get_config("granite-moe-3b-a800m")))
-    with pytest.raises(NotImplementedError):
-        tm.model_template(reduced(get_config("whisper-base")))
+    lg, cache = make_prefill_step(tcfg)(tp, {"tokens": toks[:, :7]})
+    assert torch.equal(lg, tm.forward(tp, tcfg, toks[:, :7])[0][:, -1])
+    ld, _ = make_decode_step(tcfg)(tp, cache, toks[:, 7:],
+                                   torch.full((2,), 7))
+    _close(ld, full[:, 7], 5e-3, 0.15)
+    g = tm.model_template(reduced(get_config("granite-moe-3b-a800m")))
+    assert g["groups"][0]["moe"]["w_gate"].shape == (2, 4, 64, 128)
+    w = tm.model_template(reduced(get_config("whisper-base")))
+    assert w["encoder"][0]["attn"]["wq"].shape == (2, 64, 64)
+    assert "xattn" in w["groups"][0] and "enc_norm" in w
 
 
 # ----------------------------------------------------------- params ----

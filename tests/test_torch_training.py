@@ -202,7 +202,7 @@ def test_forward_remat_is_exact_and_flows():
         ps = leaves(p, torch.is_tensor)
         for t in ps:
             t.requires_grad_(True)
-        y = tm.forward(p, tcfg, toks, remat=remat)
+        y = tm.forward(p, tcfg, toks, remat=remat)[0]
         g = torch.autograd.grad(y.square().mean(), ps)
         outs.append((y.detach(), g))
     assert torch.equal(outs[0][0], outs[1][0])
@@ -472,8 +472,8 @@ def test_param_entry_points_default_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError):
         Trainer(tcfg, corpus, TrainConfig(steps=1), mesh=object(),
                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        ts.make_prefill_step(tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.init_cache(tcfg, 2, 8)
 
 
 def test_launch_train_reduced_on_cpu():

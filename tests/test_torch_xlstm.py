@@ -149,8 +149,10 @@ def test_xlstm_blocks_equal_reference_op_by_op(impl):
     for k in ("c", "n", "h", "m"):
         _close(stst[k], sts[k], 5e-3, 0.15)
         assert stst[k].dtype == torch.float32
-    _close(tm.apply_block(pm_t, "mlstm", xt, tcfg, impl), bm, 5e-3, 0.15)
-    _close(tm.apply_block(ps_t, "slstm", xt, tcfg), bs, 5e-3, 0.15)
+    _close(tm.apply_block(pm_t, "mlstm", xt, None, tcfg, ctx)[0], bm, 5e-3,
+           0.15)
+    _close(tm.apply_block(ps_t, "slstm", xt, None, tcfg, ctx)[0], bs, 5e-3,
+           0.15)
 
 
 def _core_inputs(B, S, H, dqk, dv, seed):
@@ -258,7 +260,7 @@ def test_xlstm_forward_matches_reference(logits_mode):
     P, tp = _params()
     toks = np.random.default_rng(3).integers(0, 256, (4, 16)).astype(np.int32)
     got = tm.forward(tp, tcfg, torch.from_numpy(toks),
-                     logits_mode=logits_mode).numpy()
+                     logits_mode=logits_mode)[0].numpy()
     with jax.disable_jit():
         eager = np.asarray(jm.forward(P, jcfg, jnp.asarray(toks),
                                       logits_mode=logits_mode)[0])
@@ -269,7 +271,7 @@ def test_xlstm_forward_matches_reference(logits_mode):
     assert got.shape == ((4, 16, 64) if logits_mode == "hidden"
                          else (4, 16, 256))
     seq = tm.forward(tp, tcfg, torch.from_numpy(toks),
-                     logits_mode=logits_mode, mlstm_impl="seq").numpy()
+                     logits_mode=logits_mode, mlstm_impl="seq")[0].numpy()
     _close(seq, got, 5e-3, 0.15)
 
 
