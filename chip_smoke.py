@@ -97,8 +97,8 @@ drives the port's main path on the card:
      ``chance_hard`` (scored routing) with ``uncertain_learnable``
      admission (the learnability head) for 120, (c) ``stream_sharded`` (8
      shards, pressure stealing) and (d) the same at 20x its rate, where
-     shards do steal, each for 240 ticks; each twice, bit for bit in every integer
-     output, conservation exact, (a)'s 72 E-steps on the task route,
+     shards do steal, each for 120 ticks; each twice, bit for bit in every
+     integer output, conservation exact, (a)'s 36 E-steps on the task route,
      ``model_known > 0`` with the learner, as much stolen as donated, and
      the first 8 replications equal to a CPU run of the port on the same
      initial state and arrivals (else the first differing tick and state
@@ -205,7 +205,25 @@ drives the port's main path on the card:
      and ``linear_scan`` at the prefill's (4, 2560, 2560), each held
      against its plain version (flash within 2e-2, the scan bit-equal; a
      second call bit-equal), timed beside its bound and SDPA, with the
-     launches the main path made at that shape.
+     launches the main path made at that shape;
+ 20. the device-sharded labeling service (``sharding.n_devices = D``, one
+     controller over D shard groups; group g on ``cuda:g`` where the
+     machine has D cards, else every group on ``cuda:0``, said): (a)
+     ``stream_sharded`` at 20x its rate, 64 replications x 120 ticks at
+     D = 1, 2 and 4, each D bit-equal to D = 1 in every output, stolen ==
+     donated > 0, ticks per second and kernels per tick (a profiled
+     20-tick window) at D = 1 and 2; (b) ``skewed_adaptive5`` with the
+     refresh at D = 2, bit-equal to D = 1, ``ds_estep`` launches counted
+     per group (every E-step of a group's rows on the task route), the
+     kernel at a group's refresh shape against its plain version and
+     timed; (c) ``serve_tick`` on ``stream_sharded`` (window 8) at D = 2
+     for 100 ticks with injected arrivals, tick for tick equal to D = 1;
+     (d) ``simulate_learning_batch("hybrid_small")`` (64 x 10 rounds) split
+     in two, bit-equal to one device, one ``entropy_scores`` launch a
+     round per group, the kernel at a group's shape against its plain
+     version and timed; (e) ``lm_stream`` at full width at D = 2 for 60
+     ticks (the bank built once, copied to each group), bit-equal to
+     D = 1.
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -219,7 +237,8 @@ With ``--phase17`` it runs only the registry smoke and phase 17 (no kernel
 build: the LM stream launches none); with ``--phase18`` only the registry
 smoke, the build of ``ds_estep`` and ``entropy`` and phase 18; with
 ``--phase19`` only the build of ``flash_attention`` and ``linear_scan`` and
-phase 19; with ``--lm-depth`` only the
+phase 19; with ``--phase20`` only the build of ``ds_estep`` and
+``entropy`` and phase 20; with ``--lm-depth`` only the
 full-width xlstm-125m forward on the card against the CPU, group by group,
 in bfloat16 and float32, beside the forward's own response to a one-ulp
 move of its input (how far bfloat16 rounding alone carries with depth).
@@ -519,9 +538,9 @@ def stream_learner_phase(card: str):
     H, N, SEED, n8 = 1440, 256, 0, 8
     refresh = {"refresh_every": 40, "refresh_iters": 6}
     runs = [
-        # (a) runs a sixth of phase 4's horizon, (b) a twelfth and (c)-(d)
-        # a sixth, to keep the smoke run well inside its time limit with
-        # phases 15-19 after them
+        # (a) runs a sixth of phase 4's horizon and (b)-(d) a twelfth, to
+        # keep the smoke run well inside its time limit with phases 15-20
+        # after them (phase 20 drives stream_sharded in device groups)
         ("a", f"skewed_learner_fused with the refresh, horizon cut to "
          f"{H // 6} ticks",
          get_stream_config("skewed_learner_fused", refresh), H // 6),
@@ -530,14 +549,14 @@ def stream_learner_phase(card: str):
          get_stream_config("chance_hard", {"routing": RoutingConfig(
              enabled=True, admission="uncertain_learnable")}), H // 12),
         ("c", "stream_sharded (8 shards, pressure stealing), horizon cut "
-         f"to {H // 6} ticks",
-         get_stream_config("stream_sharded"), H // 6),
+         f"to {H // 12} ticks",
+         get_stream_config("stream_sharded"), H // 12),
         # the registry's stream_sharded never builds a backlog, so nothing
         # is stolen; at 20x its rate shards do steal
         ("d", "stream_sharded at 20x its rate (stealing under load), "
-         f"horizon cut to {H // 6} ticks",
+         f"horizon cut to {H // 12} ticks",
          get_stream_config("stream_sharded", {"arrivals": ArrivalConfig(
-             kind="poisson", rate=0.8)}), H // 6),
+             kind="poisson", rate=0.8)}), H // 12),
     ]
     tick_us = {}
     for label, what, cfg, h in runs:
@@ -2483,6 +2502,263 @@ def group_hidden(x, gp, group, mcfg):
                               {"mode": "train", "mlstm_impl": "chunked"})[0]
 
 
+def sharded_phase(card: str) -> dict:
+    """Phase 20: the device-sharded labeling service (see the module
+    docstring). A run of D shard groups puts group g on ``cuda:g`` where
+    the machine has D cards, else every group on ``cuda:0`` (said).
+    Returns the ``ds_estep`` and ``entropy_scores`` entries of the kernels
+    line at the groups' shapes."""
+    from repro_torch.core import simfast
+    from repro_torch.kernels.ds_estep import ds_estep, estep_route
+    from repro_torch.kernels.ref import ds_estep_ref, entropy_ref
+    from repro_torch.kernels.uncertainty import entropy_scores
+    from repro_torch.labelstream import aggregate, router
+    from repro_torch.labelstream.arrivals import ArrivalConfig
+    from repro_torch.learning import linear
+    from repro_torch.scenarios import (
+        get_fast_config, get_scenario, get_stream_config, spec_dataset,
+        to_serve_config, to_stream_config,
+    )
+
+    N, SEED = 64, 0
+    dev = torch.device("cuda")
+    n_cards = torch.cuda.device_count()
+
+    def devices(D):
+        return ([f"cuda:{i}" for i in range(D)] if n_cards >= D
+                else ["cuda:0"] * D)
+
+    for D in (2, 4):
+        if n_cards < D:
+            say(f"[sharded] {n_cards} card(s) visible: the {D} groups of a "
+                f"D = {D} run all go on cuda:0 (devices=['cuda:0'] * {D}); "
+                "copies between cards are not exercised")
+
+    def sharded(cfg, D):
+        return dataclasses.replace(cfg, sharding=dataclasses.replace(
+            cfg.sharding, n_devices=D))
+
+    def same(tag, got, want):
+        g, w = _outputs(got), _outputs(want)
+        check(g.keys() == w.keys(), f"{tag} outputs differ in keys")
+        diff = [k for k in w if not torch.equal(g[k], w[k])]
+        check(not diff, f"{tag} differs from the one-group run in {diff}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- (a) stream_sharded at 20x its rate: D = 1, 2, 4 ----------------
+    H = 120
+    cfg = get_stream_config("stream_sharded", {"arrivals": ArrivalConfig(
+        kind="poisson", rate=0.8)})
+    router.run_stream(sharded(cfg, 2), 4, n_reps=N, seed=SEED,
+                      device="cuda", devices=devices(2))      # warm-up
+    runs = {}
+    for D in (1, 2, 4):
+        runs[D] = timed(lambda: router.run_stream(
+            sharded(cfg, D), H, n_reps=N, seed=SEED, device="cuda",
+            devices=devices(D) if D > 1 else None))
+    for D in (1, 2, 4):
+        out, secs = runs[D]
+        if D > 1:
+            same(f"[sharded a] D = {D}", out, runs[1][0])
+        st, do = int(out["stolen"].sum()), int(out["donated"].sum())
+        check(st == do and st > 0,
+              f"[sharded a] D = {D}: stolen {st}, donated {do}")
+        say(f"[sharded a] stream_sharded at 20x its rate, {N} reps x "
+            f"{cfg.n_shards} shards x {H} ticks, D = {D} group(s) of "
+            f"{cfg.n_shards // D} shards on {devices(D) if D > 1 else 'cuda'}"
+            f": {secs:.2f} s ({H / secs:.1f} ticks/s); stolen {st} == "
+            f"donated {do}" + ("; every output equal to D = 1 bit for bit"
+                               if D > 1 else "") + f"; {card}")
+    kpt = {}
+    for D in (1, 2):
+        Hp = 20
+        wall, n_k, busy, _ = device_profile(lambda: router.run_stream(
+            sharded(cfg, D), Hp, n_reps=N, seed=SEED + 1, device="cuda",
+            devices=devices(D) if D > 1 else None))
+        kpt[D] = n_k / Hp if n_k else None
+        say(f"[profile] sharded a, D = {D}, {Hp} ticks: "
+            + (f"{n_k / Hp:.0f} kernels per tick, device busy "
+               f"{busy / Hp:.0f} us per tick, wall {wall / Hp * 1e6:.0f} us "
+               "per tick with the profiler on" if n_k else
+               "device time not measured (no device events)") + f"; {card}")
+    say(f"[sharded a] D = 1 vs D = 2: {H / runs[1][1]:.1f} vs "
+        f"{H / runs[2][1]:.1f} ticks/s, "
+        + (f"{kpt[1]:.0f} vs {kpt[2]:.0f} kernels per tick"
+           if kpt[1] and kpt[2] else "kernels per tick not measured"))
+
+    # ---- (b) skewed_adaptive5 with the refresh at D = 2 -----------------
+    refresh = {"refresh_every": 40, "refresh_iters": 6}
+    cfg = get_stream_config("skewed_adaptive5", refresh)
+    D, Sl = 2, cfg.n_shards // 2
+    n_est = H // cfg.refresh_every * cfg.refresh_iters
+    one = router.run_stream(cfg, H, n_reps=N, seed=SEED, device="cuda")
+    calls = []
+    real_estep = aggregate.ds_estep
+
+    def spy_estep(rows, idx, **kw):
+        calls.append((str(idx.device), idx.shape[0]))
+        return real_estep(rows, idx, **kw)
+
+    aggregate.ds_estep = spy_estep
+    try:
+        ds_estep.launches = ds_estep.task_launches = 0
+        got, secs = timed(lambda: router.run_stream(
+            sharded(cfg, D), H, n_reps=N, seed=SEED, device="cuda",
+            devices=devices(D)))
+        e_launches, e_task = ds_estep.launches, ds_estep.task_launches
+    finally:
+        aggregate.ds_estep = real_estep
+    same("[sharded b]", got, one)
+    # a refresh tick runs group 0's whole EM, then group 1's
+    group_of = [i // cfg.refresh_iters % D for i in range(len(calls))]
+    per_group = [group_of.count(g) for g in range(D)]
+    check(e_launches == e_task == len(calls) == D * n_est
+          and per_group == [n_est] * D
+          and all(b == N * Sl for _, b in calls),
+          f"[sharded b] {e_launches} ds_estep launches ({e_task} on the task "
+          f"route, per group {per_group}), expected {n_est} per group of "
+          f"{N * Sl} rows")
+    say(f"[sharded b] skewed_adaptive5 with the refresh, {N} reps x "
+        f"{cfg.n_shards} shards x {H} ticks at D = {D}: {secs:.2f} s, every "
+        f"output equal to D = 1 bit for bit; ds_estep launches {e_launches} "
+        f"(task route {e_task}), per group {per_group} on "
+        f"{sorted(set(d for d, _ in calls))}, {N * Sl} rows each; {card}")
+    P, C = cfg.pool_size, cfg.n_classes
+    B, W, T, V = N * Sl, P + 1, cfg.window, cfg.policy.votes_cap
+    R = W * C + 1
+    check(estep_route(B, R, C, T, V) == "task",
+          "[sharded b] the group's E-step is not on the task route")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    rows, idx = make_estep_inputs(gen, B, W, C, T, V, dev)
+    lr_, pr_ = ds_estep_ref(rows, idx)
+    lp, pp = ds_estep(rows, idx)
+    lp2, pp2 = ds_estep(rows, idx)
+    torch.cuda.synchronize()
+    e_err = (pp - pr_).abs().max().item()
+    check(torch.equal(lp, lr_) and e_err <= 1e-5 and torch.equal(lp, lp2)
+          and torch.equal(pp, pp2),
+          f"[sharded b] ds_estep disagrees with its plain version at the "
+          f"group's shape (max|dpost| {e_err:.3g})")
+    reps = 200
+    e_ms = cuda_ms(lambda: ds_estep(rows, idx), reps)
+    e_plain = cuda_ms(lambda: ds_estep_ref(rows, idx), reps)
+    e_bound, e_by, e_bytes = estep_bound_ms(B, R, C, T, V)
+    say(f"[sharded b] ds_estep at a group's refresh shape (B={B}, T={T}, "
+        f"V={V}, R={R}, C={C}), task route: logp bit-equal to the plain "
+        f"version, max|dpost| {e_err:.3g} (tol 1e-5), a second call equal; "
+        f"per call {e_ms * 1e3:.2f} us, bound {e_bound * 1e3:.3f} us "
+        f"({e_by}, {e_bytes} B), plain per call {e_plain * 1e3:.2f} us; "
+        f"{card}")
+
+    # ---- (c) the serve tick at D = 2 ------------------------------------
+    Hs = 100
+    base = get_scenario("stream_sharded", {"window": 8})
+    cfg1 = to_serve_config(base)
+    cfg2 = to_serve_config(get_scenario("stream_sharded", {
+        "window": 8, "sharding.n_devices": 2}))
+    (o1, sched, _), s1 = timed(lambda: drive_serve(
+        router, cfg1, router.serve_init(cfg1, 7, device="cuda"), Hs, 20))
+    st2 = router.serve_init(cfg2, 7, device="cuda", devices=devices(2))
+    check(len(st2["groups"]) == 2, "[sharded c] the serve state does not "
+          "hold two groups")
+    (o2, _, _), s2 = timed(lambda: drive_serve(router, cfg2, st2, Hs, 20,
+                                               sched))
+    for i, (a, b) in enumerate(zip(o2, o1)):
+        diff = [k for k in SERVE_INTS + ("conf", "tis")
+                if not np.array_equal(a[k], b[k])]
+        check(not diff, f"[sharded c] tick {i} differs from D = 1 in {diff}")
+    total = lambda k: sum(int(o[k].sum()) for o in o2)
+    check(total("fin") > 0 and total("stolen") == total("donated") > 0,
+          f"[sharded c] fin {total('fin')}, stolen {total('stolen')}, "
+          f"donated {total('donated')}")
+    say(f"[sharded c] serve_tick on stream_sharded (window 8), {Hs} ticks "
+        f"with injected arrivals: D = 2 equal to D = 1 tick for tick in "
+        f"every output; {Hs / s1:.1f} vs {Hs / s2:.1f} ticks/s (D = 1 vs "
+        f"2); finalized {total('fin')}, stolen {total('stolen')}; {card}")
+
+    # ---- (d) the learning batch split in two ----------------------------
+    fcfg = get_fast_config("hybrid_small")
+    X, y, Xt, yt = spec_dataset("hybrid_small")
+    rounds = 10
+    kw = dict(rounds=rounds, n_reps=N, seed=SEED, device="cuda")
+    one, l1 = timed(lambda: simfast.simulate_learning_batch(
+        fcfg, X, y, Xt, yt, shard=False, **kw))
+    shapes = []
+    real_ent = linear.entropy_from_logits
+
+    def spy_ent(lg, **k):
+        shapes.append((str(lg.device), tuple(lg.shape)))
+        return real_ent(lg, **k)
+
+    linear.entropy_from_logits = spy_ent
+    try:
+        entropy_scores.launches = 0
+        got, l2 = timed(lambda: simfast.simulate_learning_batch(
+            fcfg, X, y, Xt, yt, devices=devices(2), **kw))
+        h_launches = entropy_scores.launches
+    finally:
+        linear.entropy_from_logits = real_ent
+    same("[sharded d]", got, one)
+    check(h_launches == len(shapes) == 2 * rounds
+          and all(s[0] == N // 2 for _, s in shapes),
+          f"[sharded d] {h_launches} entropy_scores launches at {shapes[:2]}"
+          f", expected {2 * rounds} of {N // 2} replications")
+    say(f"[sharded d] simulate_learning_batch(hybrid_small), {N} reps x "
+        f"{rounds} rounds split in two: every output equal to the "
+        f"one-device run; entropy_scores launches {h_launches} (one a round "
+        f"on each of {sorted(set(d for d, _ in shapes))}); "
+        f"{N / l1:.2f} vs {N / l2:.2f} replications/s (one device vs the "
+        f"split); {card}")
+    Rg, n, Cc = shapes[0][1]
+    x = (torch.randn((Rg * n, Cc), generator=gen, device=dev) * 3.0)
+    h = entropy_scores(x)
+    h2 = entropy_scores(x)
+    h_err = (h - entropy_ref(x)).abs().max().item()
+    check(h_err <= 1e-5 and torch.equal(h, h2),
+          f"[sharded d] entropy_scores disagrees with its plain version at "
+          f"the group's shape (max|d| {h_err:.3g})")
+    h_ms = cuda_ms(lambda: entropy_scores(x), reps)
+    h_plain = cuda_ms(lambda: entropy_ref(x), reps)
+    h_lib = cuda_ms(lambda: torch.distributions.Categorical(
+        logits=x, validate_args=False).entropy(), reps)
+    h_bound, h_by, h_bytes = entropy_bound_ms(Rg * n, Cc, 4)
+    say(f"[sharded d] entropy_scores at a group's shape ({Rg * n}, {Cc}): "
+        f"max|d| {h_err:.3g} (tol 1e-5), a second call equal; per call "
+        f"{h_ms * 1e3:.2f} us, bound {h_bound * 1e3:.3f} us ({h_by}, "
+        f"{h_bytes} B), plain per call {h_plain * 1e3:.2f} us, "
+        f"Categorical.entropy per call {h_lib * 1e3:.2f} us; {card}")
+
+    # ---- (e) lm_stream at D = 2 -----------------------------------------
+    He = 60
+    cfg = to_stream_config(get_scenario("lm_stream", LM_FULL))
+    bank, b_s = timed(lambda: router._bank_for(cfg, "cuda"))
+    one, e1 = timed(lambda: router.run_stream(cfg, He, n_reps=N, seed=SEED,
+                                              device="cuda", bank=bank))
+    got, e2 = timed(lambda: router.run_stream(
+        sharded(cfg, 2), He, n_reps=N, seed=SEED, device="cuda", bank=bank,
+        devices=devices(2)))
+    same("[sharded e]", got, one)
+    check(int(one["done_all"].sum()) > 0, "[sharded e] nothing finalized")
+    say(f"[sharded e] lm_stream at full width (bank {tuple(bank.shape)} "
+        f"built once in {b_s:.2f} s, copied to each group), {N} reps x "
+        f"{He} ticks: D = 2 equal to D = 1 in every output; {He / e1:.1f} vs "
+        f"{He / e2:.1f} ticks/s; {card}")
+    return dict(
+        estep=dict(launches=e_launches, max_abs_err=max(e_err, 0.0),
+                   ms=e_ms, plain_ms=e_plain, bound_ms=e_bound,
+                   bound_by=e_by, library_ms=None),
+        entropy=dict(launches=h_launches, max_abs_err=h_err, ms=h_ms,
+                     plain_ms=h_plain, bound_ms=h_bound, bound_by=h_by,
+                     library_ms=h_lib))
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -2584,13 +2860,23 @@ def main():
         launch_times(sys.argv[2])
         return
     if len(sys.argv) == 2 and sys.argv[1] in ("--phase17", "--phase18",
-                                               "--phase19", "--lm-depth"):
+                                               "--phase19", "--phase20",
+                                               "--lm-depth"):
         sys.path.insert(0, str(ROOT / "src"))
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
         say(card)
         if sys.argv[1] == "--lm-depth":
             lm_depth(card)
+            return
+        if sys.argv[1] == "--phase20":
+            from repro_torch.kernels import _build
+            t0 = time.perf_counter()
+            _build.build(("ds_estep", "entropy"))
+            say(f"[build] ds_estep, entropy {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            say(json.dumps(sharded_phase(card)))
+            say(f"[phase 20] done in {time.perf_counter() - t0:.1f} s")
             return
         if sys.argv[1] == "--phase19":
             from repro_torch.kernels import _build
@@ -4574,6 +4860,12 @@ def main():
     torch.cuda.empty_cache()
     st19 = lm_stack_phase(card)["kernels"]
 
+    # ---- phase 20: the device-sharded labeling service -------------------
+    say(f"[phase 20] starts at {time.perf_counter() - t_smoke:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sh20 = sharded_phase(card)
+
     # ds_estep: the public call at the stream's refresh shape (the task
     # route's warp mode), and the task kernel at the offline EM's C4 shape
     # (block mode, the table in shared memory); entropy_scores: the narrow
@@ -4714,7 +5006,15 @@ def main():
         "name": "linear_scan_prefill", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan.py:44",
-        **st19["linear_scan_prefill"]}]}))
+        **st19["linear_scan_prefill"]}, {
+        "name": "ds_estep_sharded", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ds_estep.cu",
+        "replaces": "src/repro/kernels/ds_estep.py:58",
+        **sh20["estep"]}, {
+        "name": "entropy_scores_sharded", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/entropy.cu",
+        "replaces": "src/repro/kernels/uncertainty.py:55",
+        **sh20["entropy"]}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind,
         "count": torch.cuda.device_count()}}))

@@ -35,7 +35,15 @@ output. :func:`simulate_swept` (:class:`SimScales` multipliers) and
 population) run every sweep point x replication as rows of one batched
 run, each point drawn as its standalone :func:`simulate` draws it.
 
-Not ported: the multi-device (pmap) path (ROADMAP A13).
+The reference's ``pmap`` paths are a replication split here: with more
+than one device (``devices=``, else every visible card for ``device=
+"cuda"``, as the reference takes ``jax.local_device_count()``) and
+``shard=True``, :func:`simulate`, :func:`simulate_swept_pop` and
+:func:`simulate_learning_batch` split their rows (replications, or sweep
+points x replications) across the devices, padded to a multiple of the
+count by repeating the last row, each part run on its device from the
+same full-width draws, and the parts gathered back with the padding
+dropped: bit for bit the one-device run.
 """
 from __future__ import annotations
 
@@ -51,7 +59,11 @@ from repro_torch.core.crowd import (
     SWITCH_DELAY_S, WAIT_PAY_PER_S, WORK_PAY_PER_RECORD,
 )
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (
+    shard_gather, shard_put, tree_map,
+)
 from repro_torch.labelstream.aggregate import _add_at
+from repro_torch.launch.mesh import StreamMesh
 from repro_torch.learning import linear, select as lsel
 from repro_torch.obs import timing
 from repro_torch.obs.trace import TraceConfig
@@ -657,8 +669,57 @@ def _draws_to_device(draws, device):
     return out
 
 
+def _split_mesh(device, devices, shard: bool) -> StreamMesh:
+    """The devices of the replication split: ``devices`` if given, else
+    every visible card for a CUDA ``device`` without an index, else
+    ``device`` alone; the first of them alone without ``shard``."""
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if not devs:
+            raise ValueError("devices= must list at least one device")
+    else:
+        dev = resolve_device(device)
+        devs = [dev]
+        if dev.type == "cuda" and dev.index is None:
+            devs = [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+    return StreamMesh(tuple(devs if shard else devs[:1]))
+
+
+def _split_rows(tree, n: int, mesh: StreamMesh):
+    """``tree``'s leaves (leading dim ``n``) padded to a multiple of the
+    mesh's size by repeating the last row, then split into one
+    consecutive part per device (on that device)."""
+    pad = (-n) % mesh.size
+    grow = lambda x: torch.cat([x, x[-1:].expand((pad,) + x.shape[1:])])
+    return shard_put(tree_map(grow, tree) if pad else tree, mesh, 0)
+
+
+def _join_rows(parts, n: int, mesh: StreamMesh):
+    """The inverse of :func:`_split_rows`: the parts' leaves concatenated
+    in device order on the first device, the padding rows dropped."""
+    return tree_map(lambda x: x[:n], shard_gather(parts, mesh, 0))
+
+
+def _splits(mesh: StreamMesh, n: int) -> bool:
+    # the reference splits only when every device gets a row
+    return mesh.size > 1 and n >= mesh.size
+
+
+def _on_rows(mesh: StreamMesh, n: int, tree, run):
+    """``run(part, device)`` over the ``n`` rows of ``tree``: one part per
+    device where the rows split (:func:`_split_rows`, joined back by
+    :func:`_join_rows`), else ``tree`` whole on the first device."""
+    if not _splits(mesh, n):
+        return run(tree, mesh.devices[0])
+    return _join_rows([run(p, g) for p, g in
+                       zip(_split_rows(tree, n, mesh), mesh.devices)],
+                      n, mesh)
+
+
 def simulate(cfg: FastConfig, n_reps: int, *, seed: int = 0,
-             true_labels=None, device="cuda", draws=None):
+             true_labels=None, device="cuda", draws=None,
+             shard: bool = True, devices=None):
     """Run ``n_reps`` independent replications of the labeling simulation
     in lock-step on ``device``.
 
@@ -668,8 +729,13 @@ def simulate(cfg: FastConfig, n_reps: int, *, seed: int = 0,
     dict of tensors with leading dim ``n_reps``: latency, done and result
     ``(n_reps, n_tasks)``, total_time, accuracy, cost and pool counters,
     and the port's ``n_ticks`` ``(n_reps, n_batches)``.
+
+    With several devices (``devices``, else every card for ``device=
+    "cuda"``) and ``shard`` the replications are split across them (see
+    the module docstring); the outputs land on the first device.
     """
-    dev = resolve_device(device)
+    mesh = _split_mesh(device, devices, shard)
+    dev = mesh.devices[0]
     if true_labels is None:
         true_labels = np.zeros(cfg.n_tasks, dtype=np.int64)
     if draws is None:
@@ -680,12 +746,15 @@ def simulate(cfg: FastConfig, n_reps: int, *, seed: int = 0,
                          f"n_reps={n_reps}")
     labels = torch.as_tensor(np.asarray(true_labels).astype(np.int64),
                              device=dev)
-    return _simulate_one(cfg, d["ws"], d["banks"], d["seed"], labels)
+    if labels.dim() == 2:
+        d["labels"] = labels
+    return _on_rows(mesh, n_reps, d, lambda p, g: _simulate_one(
+        cfg, p["ws"], p["banks"], p["seed"], p.get("labels", labels.to(g))))
 
 
 def simulate_swept(cfg: FastConfig, n_reps: int, scales: SimScales, *,
                    seed: int = 0, true_labels=None, shard: bool = True,
-                   device="cuda", draws=None):
+                   device="cuda", draws=None, devices=None):
     """Sweep over the :class:`SimScales` multipliers as one batched run
     (the ``scenarios.sweep`` backend for the batch engine's continuous
     pool axes). Each multiplier is resolved against the config in float32,
@@ -701,7 +770,7 @@ def simulate_swept(cfg: FastConfig, n_reps: int, scales: SimScales, *,
         cold_recruit_mean_s=np.float32(cfg.cold_recruit_mean_s) * re)
     return simulate_swept_pop(cfg, n_reps, pop, seed=seed,
                               true_labels=true_labels, shard=shard,
-                              device=device, draws=draws)
+                              device=device, draws=draws, devices=devices)
 
 
 def _np_leaf(x):
@@ -711,20 +780,22 @@ def _np_leaf(x):
 def simulate_swept_pop(cfg: FastConfig, n_reps: int, pop: PopTraced, *,
                        seed: int = 0, true_labels=None, shard: bool = True,
                        timing_name: Optional[str] = None, device="cuda",
-                       draws=None):
+                       draws=None, devices=None):
     """Sweep over a :class:`PopTraced` bundle as one batched run: the
     leaves share a leading sweep axis ``(V,)`` (numbers broadcast); every
     point x replication is a row of one :func:`_simulate_one`. Point i
     draws its pools as ``simulate`` on the config with point i's values
     does for ``seed``, and its rows run the tick with its recruitment and
     session means, so it equals that run bit for bit. Values are read as
-    float64 on the host (the draws are host numpy). ``shard`` is accepted
-    for the reference's signature (one device); ``timing_name`` records
-    ``<timing_name>.execute`` in :mod:`repro_torch.obs.timing`. ``draws``
-    (a list of V dicts as :func:`draw_batch_init` returns; parity tests)
-    replaces each point's draws. Returns outputs with leading dims ``(V,
-    n_reps)``."""
-    dev = resolve_device(device)
+    float64 on the host (the draws are host numpy). With several devices
+    (``devices``, else every card for ``device="cuda"``) and ``shard`` the
+    rows are split across them (see the module docstring);
+    ``timing_name`` records ``<timing_name>.execute`` in
+    :mod:`repro_torch.obs.timing`. ``draws`` (a list of V dicts as
+    :func:`draw_batch_init` returns; parity tests) replaces each point's
+    draws. Returns outputs with leading dims ``(V, n_reps)``."""
+    mesh = _split_mesh(device, devices, shard)
+    dev = mesh.devices[0]
     t_start = time.perf_counter()
     if true_labels is None:
         true_labels = np.zeros(cfg.n_tasks, dtype=np.int64)
@@ -747,19 +818,21 @@ def simulate_swept_pop(cfg: FastConfig, n_reps: int, pop: PopTraced, *,
         vals, dtype=torch.float32, device=dev
     ).repeat_interleave(n_reps)[:, None]
     rows = dict(
-        recruit=per_row([c.recruit_mean_s if c.retainer
-                         else c.cold_recruit_mean_s for c in cfgs]),
-        session=per_row([c.session_mean_s for c in cfgs]))
+        ws=cat("ws"), banks=cat("banks"),
+        seed=torch.cat([d["seed"] for d in dev_draws]),
+        pop=dict(recruit=per_row([c.recruit_mean_s if c.retainer
+                                  else c.cold_recruit_mean_s for c in cfgs]),
+                 session=per_row([c.session_mean_s for c in cfgs])))
     labels = torch.as_tensor(np.asarray(true_labels).astype(np.int64),
                              device=dev)
-    out = _simulate_one(cfg, cat("ws"), cat("banks"),
-                        torch.cat([d["seed"] for d in dev_draws]), labels,
-                        rows)
+    out = _on_rows(mesh, V * n_reps, rows, lambda p, g: _simulate_one(
+        cfg, p["ws"], p["banks"], p["seed"], labels.to(g), p["pop"]))
     out = {k: v.reshape((V, n_reps) + tuple(v.shape[1:]))
            for k, v in out.items()}
     if timing_name is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for d in mesh.devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         timing.record(f"{timing_name}.execute",
                       time.perf_counter() - t_start)
     return out
@@ -865,50 +938,67 @@ def simulate_learning_batch(cfg: FastConfig, X, y, X_test, y_test, *,
                             fit_steps: int = 60,
                             decision_latency_s: float = 15.0,
                             use_kernel: bool = True, device="cuda",
-                            draws=None):
+                            draws=None, shard: bool = True, devices=None):
     """Vectorized hybrid learning: rounds as a Python loop, replications as
     the leading dim of every tensor, one entropy launch per round for all
-    of them.
+    of them on each device.
 
     Each round draws, per replication, the passive uniforms (a
-    ``torch.Generator`` on the device seeded with ``seed``) and the crowd
-    batch's fresh pool, banks and counter seed (a numpy generator seeded
-    with ``seed``); ``draws`` (a sequence of ``rounds`` dicts as
+    ``torch.Generator`` on the first device seeded with ``seed``) and the
+    crowd batch's fresh pool, banks and counter seed (a numpy generator
+    seeded with ``seed``); ``draws`` (a sequence of ``rounds`` dicts as
     :func:`draw_round` returns) replaces them. ``use_kernel=False`` scores
-    entropy with the plain version.
+    entropy with the plain version. With several devices (``devices``,
+    else every card for ``device="cuda"``) and ``shard`` the replications
+    are split across them (see the module docstring), each round's draws
+    made at full width first.
 
     Returns a dict with ``curve`` = {t, n_labeled, acc}, each ``(n_reps,
     rounds + 1)``, and the final ``W``/``b``/``labeled``/``y_obs``/
     ``total_time``.
     """
-    dev = resolve_device(device)
+    mesh = _split_mesh(device, devices, shard)
+    dev = mesh.devices[0]
     X, y, X_test, y_test, C, k_active, bcfg = _learning_setup(
         cfg, X, y, X_test, y_test, k_active, dev)
     n, d = X.shape
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    st = linear.init(d, C, lead=(n_reps,), device=dev)
-    W, b = st.W, st.b
-    labeled = torch.zeros((n_reps, n), dtype=torch.bool, device=dev)
-    y_obs = torch.zeros((n_reps, n), dtype=torch.int64, device=dev)
-    t = torch.zeros((n_reps,), device=dev)
-    ts, nl, accs = [t], [labeled.sum(-1)], [linear.test_accuracy(st, X_test,
-                                                                  y_test)]
+    split = _splits(mesh, n_reps)
+    D = mesh.size if split else 1
+    R = -(-n_reps // D)                  # replications per device, padded
+    parts = []
+    for g in range(D):
+        gd = mesh.devices[g]
+        st = linear.init(d, C, lead=(R,), device=gd)
+        t = torch.zeros((R,), device=gd)
+        parts.append(dict(
+            data=tuple(a.to(gd) for a in (X, y, X_test, y_test)),
+            W=st.W, b=st.b, t=t,
+            labeled=torch.zeros((R, n), dtype=torch.bool, device=gd),
+            y_obs=torch.zeros((R, n), dtype=torch.int64, device=gd)))
+        acc0 = linear.test_accuracy(st, *parts[-1]["data"][2:])
+        parts[-1]["curve"] = dict(t=[t], n_labeled=[
+            parts[-1]["labeled"].sum(-1)], acc=[acc0])
     for r in range(rounds):
         draw = draws[r] if draws is not None else draw_round(
             bcfg, n_reps, n, rng, gen)
-        W, b, labeled, y_obs, t, aux = _learner_round(
-            bcfg, X, y, X_test, y_test, k_active, cfg.pool_size - k_active,
-            fit_steps, decision_latency_s, use_kernel, W, b, labeled, y_obs, t,
-            _draws_to_device(draw, dev))
-        ts.append(t)
-        nl.append(labeled.sum(-1))
-        accs.append(aux["acc"])
-    curve = dict(t=torch.stack(ts, 1), n_labeled=torch.stack(nl, 1),
-                 acc=torch.stack(accs, 1))
-    return dict(curve=curve, W=W, b=b, labeled=labeled, y_obs=y_obs,
-                total_time=t)
+        dd = _draws_to_device(draw, dev)
+        for dg, p in zip(_split_rows(dd, n_reps, mesh) if split else [dd],
+                         parts):
+            p["W"], p["b"], p["labeled"], p["y_obs"], p["t"], aux = \
+                _learner_round(
+                    bcfg, *p["data"], k_active, cfg.pool_size - k_active,
+                    fit_steps, decision_latency_s, use_kernel, p["W"],
+                    p["b"], p["labeled"], p["y_obs"], p["t"], dg)
+            p["curve"]["t"].append(p["t"])
+            p["curve"]["n_labeled"].append(p["labeled"].sum(-1))
+            p["curve"]["acc"].append(aux["acc"])
+    outs = [dict(curve={k: torch.stack(v, 1) for k, v in p["curve"].items()},
+                 W=p["W"], b=p["b"], labeled=p["labeled"], y_obs=p["y_obs"],
+                 total_time=p["t"]) for p in parts]
+    return _join_rows(outs, n_reps, mesh) if split else outs[0]
 
 
 def simulate_learning(cfg: FastConfig, X, y, X_test, y_test, *,

@@ -12,7 +12,7 @@ duplicate fetches censor observed latencies exactly as in the crowd setting.
 The port's own copy of ``src/repro/distributed/elastic.py``: the host-side
 monitor and the degree rule, with no device work, so it takes no
 ``device`` argument. The mesh rebuild it feeds is the multi-device path
-(ROADMAP A13).
+(ROADMAP A13b).
 """
 from __future__ import annotations
 

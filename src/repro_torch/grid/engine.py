@@ -17,8 +17,8 @@ Each cell's outputs equal the standalone ``scenarios.run`` of that cell
 bit for bit: the bundles carry each cell's absolute values, read as
 float64 on the host as a standalone run reads its config. The scalar
 events engine batches nothing and runs one run per cell; so does a
-device-sharded stream class, whose per-cell run raises (the multi-device
-path is ROADMAP A13).
+device-sharded stream class (``sharding.n_devices > 1``), each cell through
+the sharded ``run_stream`` on its device groups, as in the reference.
 
 The port compiles nothing: a class records only its ``execute`` time, and
 its ``compile_s`` is None.
@@ -108,8 +108,9 @@ def _run_class_stream(cls, name, *, horizon, n_reps, seed, warmup_frac,
                       device):
     """Run one stream-engine class as one batched grid run. Returns
     ``(cell_cfgs, raw)`` — ``raw`` stacked over the class's cells in class
-    order — or ``None`` when the class needs the per-cell fallback (a
-    device-sharded tick)."""
+    order — or ``None`` when the class runs per cell (a device-sharded
+    tick: ``run_stream_grid`` spends its batch on cells, not on device
+    groups)."""
     from repro_torch.labelstream.router import StreamTraced, run_stream_grid
     from repro_torch.scenarios.compile import to_stream_config
 
@@ -138,7 +139,8 @@ def _run_class_stream(cls, name, *, horizon, n_reps, seed, warmup_frac,
     return cfgs, raw
 
 
-def _run_class_simfast(cls, name, *, n_reps, seed, true_labels, device):
+def _run_class_simfast(cls, name, *, n_reps, seed, true_labels, shard,
+                       device, devices):
     """Run one simfast-engine class as one batched population-bundle run.
     Returns ``(cell_cfgs, raw)``."""
     from repro_torch.core.simfast import PopTraced, simulate_swept_pop
@@ -154,8 +156,9 @@ def _run_class_simfast(cls, name, *, n_reps, seed, true_labels, device):
         acc_b=_f64([c.acc_b for c in cfgs]),
     )
     raw = simulate_swept_pop(cfgs[0], n_reps, pop, seed=seed,
-                             true_labels=true_labels, timing_name=name,
-                             device=device)
+                             true_labels=true_labels, shard=shard,
+                             timing_name=name, device=device,
+                             devices=devices)
     return cfgs, raw
 
 
@@ -172,7 +175,7 @@ def _summary(engine: str, cfg, point) -> dict:
 def run_grid(grid: GridSpec, engine: str = None, *, seed: int = 0,
              n_reps: int = 1, horizon: int = None,
              warmup_frac: float = 0.3, true_labels=None, shard: bool = True,
-             keep_raw: bool = False, device="cuda") -> dict:
+             keep_raw: bool = False, device="cuda", devices=None) -> dict:
     """Execute every cell of ``grid`` on ``device``, one batched run per
     static-config equivalence class (one run per cell on the events
     engine).
@@ -185,8 +188,11 @@ def run_grid(grid: GridSpec, engine: str = None, *, seed: int = 0,
     ``compile_s`` None: the port compiles nothing) and total
     ``wallclock_s``. ``keep_raw`` also attaches each cell's raw engine
     output (its slice of the class batch) under ``cells[i]["raw"]``.
-    ``shard`` is accepted for the reference's signature and does nothing:
-    a class runs on the one ``device``.
+    ``shard`` splits a simfast class's cells across several devices
+    (``devices``, else every card; see ``simulate_swept_pop``); a
+    device-sharded stream class runs each cell on its shard groups, on
+    ``devices`` if given (see
+    :func:`~repro_torch.launch.mesh.make_stream_mesh`).
     """
     t0 = time.perf_counter()
     engine, cells, classes = partition_grid(grid, engine, horizon=horizon,
@@ -207,7 +213,8 @@ def run_grid(grid: GridSpec, engine: str = None, *, seed: int = 0,
         elif engine == "simfast":
             batched = _run_class_simfast(
                 cls, name, n_reps=n_reps, seed=seed,
-                true_labels=true_labels, device=device)
+                true_labels=true_labels, shard=shard, device=device,
+                devices=devices)
         if batched is not None:
             cfgs, raw = batched
             for j, flat in enumerate(cls.cells):
@@ -218,14 +225,15 @@ def run_grid(grid: GridSpec, engine: str = None, *, seed: int = 0,
                 if keep_raw:
                     cell_raw[flat] = point
         else:
-            # per-cell fallback: the scalar events engine, or a device-
-            # sharded stream tick
+            # per cell: the scalar events engine, or a device-sharded
+            # stream tick
             t1 = time.perf_counter()
             for j, flat in enumerate(cls.cells):
                 res = _run_cell(cls.specs[j], engine, seed=seed,
                                 n_reps=n_reps, horizon=horizon,
                                 warmup_frac=warmup_frac,
-                                true_labels=true_labels, device=device)
+                                true_labels=true_labels, device=device,
+                                devices=devices)
                 cell_metrics[flat] = res["metrics"]
                 if keep_raw:
                     cell_raw[flat] = res["raw"]

@@ -65,8 +65,16 @@ identity is bound at arrival and rides the backlog (and a steal) to its
 admission, so a submitter's real-text embedding and known label reach its
 window slot.
 
-Not yet ported (the config validator refuses it): device sharding (ROADMAP
-A13).
+Device sharding (``sharding.n_devices = D > 1``, the reference's
+``shard_map`` tick) runs one controller over D shard groups of ``n_shards /
+D`` shards, group ``g`` on device ``g`` of a
+:class:`~repro_torch.launch.mesh.StreamMesh`: each tick advances every
+group on its device, and the mesh's ``gather`` / ``psum`` join them in
+canonical shard order for the work steal, the shared learner and the
+reduction over shards. Everything drawn from the seed is drawn once at full
+width and sliced per group, so any D gives the one-group results bit for
+bit. The sweeps batch their points on one device, each point's shards in
+one group, as the reference's sweeps run sharded configs unsharded.
 """
 from __future__ import annotations
 
@@ -86,6 +94,9 @@ from repro_torch.core.simfast import (
     draw_latency, priority_match,
 )
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (
+    gather_rows, shard_rows, tree_map,
+)
 from repro_torch.embed.bank import bank_gather, embedding_bank
 from repro_torch.labelstream.aggregate import _add_at, _count_rows, _ds_em
 from repro_torch.labelstream.arrivals import (
@@ -98,6 +109,9 @@ from repro_torch.labelstream.policy import (
 from repro_torch.labelstream.routing import (
     RoutingConfig, admit_scores, admit_select, learnability_features,
     route_scores, scored_match,
+)
+from repro_torch.launch.mesh import (
+    StreamMesh, check_stream_sharding, make_stream_mesh,
 )
 from repro_torch.learning import linear
 from repro_torch.learning.linear import ordered_matmul
@@ -134,8 +148,14 @@ class StreamLearnerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShardingConfig:
-    """Device topology for the streaming tick. ``steal="pressure"`` runs on
-    one device; ``n_devices > 1`` is not ported yet."""
+    """Device topology for the streaming tick: ``n_devices`` shard groups
+    of ``n_shards / n_devices`` shards, each on its own device of the
+    run's :class:`~repro_torch.launch.mesh.StreamMesh`, with bit-identical
+    results at any count. ``steal="pressure"`` adds cross-shard work
+    stealing each tick: shards exchange their backlog depths (a gather),
+    shards more than ``steal_slack`` tasks above the global mean donate up
+    to ``steal_max`` of their OLDEST backlog entries, and shards below the
+    mean claim them in deterministic shard order (FIFO admission only)."""
     n_devices: int = 1
     steal: str = "none"           # "none" | "pressure"
     steal_max: int = 4            # max tasks a donor shard exports per tick
@@ -978,7 +998,7 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
 
 
 # --------------------------------------------------------------------------
-# cross-shard work stealing (one device)
+# cross-shard work stealing
 # --------------------------------------------------------------------------
 
 def _steal_plan(counts, steal_max: int, slack: int):
@@ -998,78 +1018,111 @@ def _steal_plan(counts, steal_max: int, slack: int):
     return fill(give0), fill(take0)
 
 
-def _steal_rebalance(cfg: StreamConfig, bl):
+def _steal_rebalance(cfg: StreamConfig, bl, mesh: Optional[StreamMesh] = None):
     """Move backlog work from hot shards to starved ones of the same
-    replication (FIFO ring). Donors pop their OLDEST entries (arrival times
-    are task identity under FIFO admission), the donations are pooled per
-    replication in donation-rank order, and receivers append their claimed
-    ranks at the tail: the replication's backlog multiset is unchanged. In
-    serve mode the uid ring moves by the same plan, and with LM features
-    the label, difficulty and embedding rings too, so a stolen entry keeps
-    its identity. Returns ``(bl, received, donated)``, the counts (B,)."""
+    replication (FIFO ring). ``bl`` is one group's backlog, or a list of
+    the mesh's groups' backlogs (each ``n_reps * n_shards / D`` rows).
+    The groups' depths are gathered and the plan is global; donors pop
+    their OLDEST entries (arrival times are task identity under FIFO
+    admission), the donations are gathered and pooled per replication in
+    donation-rank order, and each group's receivers claim their ranks at
+    their own offset and append them at the tail: the replication's
+    backlog multiset is unchanged. In serve mode the uid ring moves by the
+    same plan, and with LM features the label, difficulty and embedding
+    rings too, so a stolen entry keeps its identity. Returns ``(bl,
+    received, donated)`` in ``bl``'s form, the counts per row."""
+    one = isinstance(bl, dict)
+    bls = [bl] if one else list(bl)
+    if mesh is None:
+        mesh = StreamMesh((bls[0]["count"].device,))
     sh = cfg.sharding
     S, Q, K = cfg.n_shards, cfg.backlog, sh.steal_max
-    B = bl["count"].shape[0]
-    N, dev = B // S, bl["count"].device
-    counts = bl["count"].reshape(N, S)
-    head = bl["head"].reshape(N, S)
+    D = len(bls)
+    Sl = S // D
+    N = bls[0]["count"].shape[0] // Sl
+    d0 = mesh.devices[0]
+    counts = mesh.gather([b["count"].reshape(N, Sl) for b in bls], 1)
     give, take = _steal_plan(counts, K, sh.steal_slack)
     gcum = torch.cumsum(give, -1) - give                    # donation ranks
     tcum = torch.cumsum(take, -1) - take                    # claim ranks
-    k = torch.arange(K, device=dev)
-    # donors pop their oldest entries off the ring head
-    pos = (head[..., None] + k) % Q                         # (N, S, K)
-    head = (head + give) % Q
-    count = counts - give
+    k = torch.arange(K, device=d0)
     validd = k < give[..., None]
     ranks = torch.where(validd, gcum[..., None] + k, S * K).reshape(N, -1)
-    # receivers claim consecutive ranks and append at their tail
-    validc = k < take[..., None]
-    claim = torch.where(validc, tcum[..., None] + k, 0).reshape(N, -1)
-    posr = torch.where(validc, (head[..., None] + count[..., None] + k) % Q,
-                       Q)
+    loc = []
+    for g, (b, dev) in enumerate(zip(bls, mesh.devices)):
+        give_l, take_l, tcum_l = (x[:, g * Sl:(g + 1) * Sl].to(dev)
+                                  for x in (give, take, tcum))
+        kl = k.to(dev)
+        head = b["head"].reshape(N, Sl)
+        count = b["count"].reshape(N, Sl)
+        # donors pop their oldest entries off the ring head
+        pos = (head[..., None] + kl) % Q                     # (N, Sl, K)
+        head = (head + give_l) % Q
+        count = count - give_l
+        # receivers claim consecutive ranks and append at their tail
+        validc = kl < take_l[..., None]
+        loc.append(dict(
+            pos=pos, validc=validc, take=take_l, give=give_l, head=head,
+            count=count,
+            claim=torch.where(validc, tcum_l[..., None] + kl, 0
+                              ).reshape(N, -1),
+            posr=torch.where(validc,
+                             (head[..., None] + count[..., None] + kl) % Q,
+                             Q)))
 
-    def move(ring, fill):
+    def move(rings, fill):
         # the donations pooled in rank order (the dump entry S*K and the
         # ring's dump slot Q only ever take ``fill``); a ring may carry a
         # trailing feature axis
-        trail = tuple(ring.shape[2:])
+        trail = tuple(rings[0].shape[2:])
         ex = lambda i: i.reshape(i.shape + (1,) * len(trail)).expand(
             i.shape + trail)
-        ring = ring.reshape((N, S, Q + 1) + trail)
-        don = torch.gather(ring, 2, ex(pos))
-        pool = torch.full((N, S * K + 1) + trail, fill, dtype=ring.dtype,
-                          device=dev).scatter(
+        rings = [r.reshape((N, Sl, Q + 1) + trail) for r in rings]
+        don = mesh.gather([torch.gather(r, 2, ex(lc["pos"]))
+                           for r, lc in zip(rings, loc)], 1)
+        pool = torch.full((N, S * K + 1) + trail, fill,
+                          dtype=rings[0].dtype, device=d0).scatter(
             1, ex(ranks),
             torch.where(ex(validd), don, fill).reshape((N, -1) + trail)
         )[:, :S * K]
-        incoming = torch.gather(pool, 1, ex(claim)).reshape(
-            (N, S, K) + trail)
-        return ring.scatter(2, ex(posr), torch.where(
-            ex(validc), incoming, fill)).reshape((B, Q + 1) + trail)
+        out = []
+        for r, lc, p in zip(rings, loc, mesh.replicate(pool)):
+            incoming = torch.gather(p, 1, ex(lc["claim"])).reshape(
+                (N, Sl, K) + trail)
+            out.append(r.scatter(2, ex(lc["posr"]), torch.where(
+                ex(lc["validc"]), incoming, fill)).reshape(
+                    (N * Sl, Q + 1) + trail))
+        return out
 
-    new = dict(times=move(bl["times"], 0.0), head=head.reshape(B),
-               count=(count + take).reshape(B))
+    new = [dict(times=t, head=lc["head"].reshape(-1),
+                count=(lc["count"] + lc["take"]).reshape(-1))
+           for t, lc in zip(move([b["times"] for b in bls], 0.0), loc)]
     for name, fill in (("uid", -1), ("tlab", 0), ("diff", 1.0),
                        ("feat", 0.0)):
-        if name in bl:
-            new[name] = move(bl[name], fill)
-    return new, take.reshape(B), give.reshape(B)
+        if name in bls[0]:
+            for nb, ring in zip(new, move([b[name] for b in bls], fill)):
+                nb[name] = ring
+    got = [lc["take"].reshape(-1) for lc in loc]
+    gave = [lc["give"].reshape(-1) for lc in loc]
+    if one:
+        return new[0], got[0], gave[0]
+    return new, got, gave
 
 
 # --------------------------------------------------------------------------
 # driver
 # --------------------------------------------------------------------------
 
-def _learner_tick_params(cfg: StreamConfig, ls):
+def _learner_tick_params(cfg: StreamConfig, ls, n_shards: int):
     """The tick's learner parameters, each replication's expanded to its
-    shards (B): the learner's ``lW``/``lb``, the fusion weight ``fuse_w``
-    (ramping with the ring's fill so an untrained model contributes
-    nothing), and under ``uncertain_learnable`` the learnability head's
-    ``gW``/``gb``. None without a learner."""
+    ``n_shards`` shards of one group (rows ``n_reps * n_shards``): the
+    learner's ``lW``/``lb``, the fusion weight ``fuse_w`` (ramping with the
+    ring's fill so an untrained model contributes nothing), and under
+    ``uncertain_learnable`` the learnability head's ``gW``/``gb``. None
+    without a learner."""
     if ls is None:
         return None
-    L, S = cfg.learner, cfg.n_shards
+    L, S = cfg.learner, n_shards
     rep = lambda x: x.repeat_interleave(S, 0)
     fuse_w = L.prior_scale * torch.clamp(
         ls["buf_n"].to(torch.float32) / L.ramp_n, max=1.0)
@@ -1203,36 +1256,97 @@ _TRACE_SERIES = ("votes", "busy_workers", "idle_workers", "dropped",
                  "stolen", "donated")
 
 
+_GROUP_KEYS = ("ws", "banks", "win", "bl", "seeds")
+
+
+def _to(tree, device):
+    """A state part (tensors, dicts of them, learners) on ``device``."""
+    return tree_map(lambda x: x.to(device) if torch.is_tensor(x) else x,
+                    tree)
+
+
+def _groups(state: dict):
+    """The shard groups of a run or serve state and its mesh. A state of
+    one group (:func:`state_from_numpy`) is its own group."""
+    if "groups" in state:
+        return state["groups"], state["mesh"]
+    return [state], StreamMesh((state["seeds"].device,))
+
+
+def shard_state(cfg: StreamConfig, state: dict, mesh: StreamMesh) -> dict:
+    """A one-group run or serve state (:func:`state_from_numpy`,
+    :func:`serve_state_from_numpy`) split into the ``mesh.size`` groups of
+    ``cfg.n_shards / mesh.size`` shards, group ``g`` on
+    ``mesh.devices[g]``: ``{"groups": [...], "mesh": mesh, "learner": ...}``
+    and the state's other entries, the learner (one per replication,
+    shared by all groups) on ``mesh.devices[0]``. A serve state's bank is
+    copied to every group. One group comes back unchanged."""
+    if mesh.size == 1:
+        return state
+    check_stream_sharding(cfg.n_shards, mesh.size)
+    n_reps = state["seeds"].shape[0] // cfg.n_shards
+    groups = shard_rows({k: state[k] for k in _GROUP_KEYS}, mesh, n_reps)
+    if state.get("bank") is not None:
+        for grp, b in zip(groups, mesh.replicate(state["bank"])):
+            grp["bank"] = b
+    rest = {k: v for k, v in state.items() if k not in _GROUP_KEYS}
+    return dict(_to(rest, mesh.devices[0]), groups=groups, mesh=mesh)
+
+
+def gather_state(cfg: StreamConfig, state: dict) -> dict:
+    """The inverse of :func:`shard_state`: one group on the first group's
+    device, its rows in canonical shard order."""
+    if "groups" not in state:
+        return state
+    groups, mesh = _groups(state)
+    n_reps = groups[0]["seeds"].shape[0] * mesh.size // cfg.n_shards
+    flat = gather_rows([{k: g[k] for k in _GROUP_KEYS} for g in groups],
+                       mesh, n_reps)
+    rest = {k: v for k, v in state.items() if k not in ("groups", "mesh")}
+    return dict(rest, **flat)
+
+
 def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
              rate_scale: float, gen: Optional[torch.Generator],
              arrivals=None, ov: Optional[dict] = None, bank=None):
     """All replications of one run in lock-step: a loop of ``horizon``
-    ticks over ``state`` (see :func:`state_from_numpy`). Arrivals are drawn
-    from ``gen`` or taken from ``arrivals = (n_new (H, n_reps), n_arr (H,
-    n_reps, n_shards))``; ``ov`` holds a sweep's per-row overrides (see
-    :func:`_shard_tick`), ``bank`` the embedding bank of LM features.
-    Returns ``(out, state)``; ``out`` holds tensors on the state's device,
-    reduced over shards as in the reference."""
+    ticks over ``state`` (see :func:`state_from_numpy`; split into device
+    groups by :func:`shard_state`). Arrivals are drawn at full width from
+    ``gen`` on the first group's device, or taken from ``arrivals = (n_new
+    (H, n_reps), n_arr (H, n_reps, n_shards))``, and each group takes its
+    shards' columns; ``ov`` holds a sweep's per-row overrides (see
+    :func:`_shard_tick`), ``bank`` the embedding bank of LM features
+    (copied to every group's device). Every tick advances each group's
+    shards on its own device, then the steal and the shared learner read
+    the groups' gathered rows. Per-shard accumulators are gathered into
+    canonical shard order before the reduction over shards, so the
+    reduction and its float summation order are the same at any group
+    count. Returns ``(out, state)``; ``out`` holds tensors on the first
+    group's device, reduced over shards as in the reference."""
     S, M = cfg.n_shards, cfg.max_arrivals_per_tick
     cap_total = M * S
-    seeds = state["seeds"]
-    dev = seeds.device
-    B = seeds.shape[0]
-    N = B // S
-    ws, banks, win, bl = state["ws"], state["banks"], state["win"], state["bl"]
+    groups, mesh = _groups(state)
+    groups = [dict(g) for g in groups]
+    D = mesh.size
+    Sl = S // D
+    dev = mesh.devices[0]
+    N = groups[0]["seeds"].shape[0] // Sl
     ls = state["learner"]
     steal = cfg.sharding.steal != "none"
     tr = cfg.trace
     tr_ph = tr is not None and tr.phases
     tr_pt = tr is not None and tr.per_tick
-    zi = lambda *s: torch.zeros(s, dtype=torch.int64, device=dev)
-    acc = {k: zi(B) for k in _ACCUM if k != "hist"}
-    acc["hist"] = zi(B, cfg.tis_bins)
-    acc["sum_tis"] = torch.zeros((B,), device=dev)
-    if tr_ph:
-        acc["ph"] = zi(B, len(TRACE_PHASES), cfg.tis_bins)
-        acc["ps"] = torch.zeros((B, len(TRACE_PHASES)), device=dev)
-    stolen, donated = zi(B), zi(B)
+    zi = lambda *s, d=dev: torch.zeros(s, dtype=torch.int64, device=d)
+    accs = []
+    for d in mesh.devices:
+        acc = {k: zi(N * Sl, d=d) for k in _ACCUM if k != "hist"}
+        acc["hist"] = zi(N * Sl, cfg.tis_bins, d=d)
+        acc["sum_tis"] = torch.zeros((N * Sl,), device=d)
+        if tr_ph:
+            acc["ph"] = zi(N * Sl, len(TRACE_PHASES), cfg.tis_bins, d=d)
+            acc["ps"] = torch.zeros((N * Sl, len(TRACE_PHASES)), device=d)
+        acc["stolen"], acc["donated"] = zi(N * Sl, d=d), zi(N * Sl, d=d)
+        accs.append(acc)
     over, arrived, arrived_warm = zi(N), zi(N), zi(N)
     series = {k: zi(N, horizon)
               for k in ("arrivals", "finalized", "backlog", "in_flight")}
@@ -1242,6 +1356,8 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
         tser = zi(N, horizon, len(_TRACE_SERIES))
         adm = torch.zeros((N, horizon), device=dev) \
             if cfg.routing.admission != "fifo" else None
+    banks = mesh.replicate(bank) if bank is not None else [None] * D
+    ovs = shard_rows(ov, mesh, N) if ov is not None else [None] * D
     arr_state = init_arrival_state(cfg.arrivals, N, dev)
     if arrivals is not None:
         inj_new, inj_arr = (
@@ -1253,6 +1369,7 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
                 f"injected arrivals must be ({horizon}, {N}) and ({horizon}, "
                 f"{N}, {S}), got {tuple(inj_new.shape)} and "
                 f"{tuple(inj_arr.shape)}")
+    psum = lambda ms, k: mesh.psum([m[k].reshape(N, Sl).sum(-1) for m in ms])
     t = np.float32(0.0)
     for step in range(horizon):
         tf = float(t)
@@ -1263,43 +1380,63 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
                                                      rate_scale)
         over = over + torch.clamp(n_arr - M, min=0).sum(-1) \
             + (n_new - torch.clamp(n_new, max=cap_total))
-        n_arr = torch.clamp(n_arr, max=M).reshape(B)
-        ws, win, bl, m, train = _shard_tick(
-            cfg, ws, banks, win, bl, n_arr, tf, step, seeds, warmup_t,
-            _learner_tick_params(cfg, ls), ov=ov, bank=bank)
+        n_arr = torch.clamp(n_arr, max=M)
+        lp = _learner_tick_params(cfg, ls, Sl)
+        ms, trains = [], []
+        for g, grp in enumerate(groups):
+            d = mesh.devices[g]
+            ws, win, bl, m, train = _shard_tick(
+                cfg, grp["ws"], grp["banks"], grp["win"], grp["bl"],
+                n_arr[:, g * Sl:(g + 1) * Sl].reshape(-1).to(d), tf, step,
+                grp["seeds"], warmup_t, _to(lp, d), ov=ovs[g],
+                bank=banks[g])
+            grp.update(ws=ws, win=win, bl=bl)
+            ms.append(m)
+            trains.append(train)
         if steal:
-            bl, got, gave = _steal_rebalance(cfg, bl)
-            stolen = stolen + got
-            donated = donated + gave
+            bls, gots, gaves = _steal_rebalance(
+                cfg, [grp["bl"] for grp in groups], mesh)
+            for grp, acc, b, got, gave in zip(groups, accs, bls, gots,
+                                              gaves):
+                grp["bl"] = b
+                acc["stolen"] = acc["stolen"] + got
+                acc["donated"] = acc["donated"] + gave
         elif tr_pt:
-            got = gave = torch.zeros_like(m["dropped"])
+            gots = gaves = [torch.zeros_like(m["dropped"]) for m in ms]
         if ls is not None:
-            ls = _learner_push_fit(cfg, ls, train, step)
-        for k in acc:
-            acc[k] = acc[k] + m[k]
+            ls = _learner_push_fit(cfg, ls, gather_rows(trains, mesh, N),
+                                   step)
+        for acc, m in zip(accs, ms):
+            for k in _ACCUM + (("ph", "ps") if tr_ph else ()):
+                acc[k] = acc[k] + m[k]
         arrived = arrived + n_new
         if tf >= warmup_t:
             arrived_warm = arrived_warm + n_new
         series["arrivals"][:, step] = n_new
-        series["finalized"][:, step] = m["done_all"].reshape(N, S).sum(-1)
-        series["backlog"][:, step] = m["backlog"].reshape(N, S).sum(-1)
-        series["in_flight"][:, step] = m["in_flight"].reshape(N, S).sum(-1)
+        series["finalized"][:, step] = psum(ms, "done_all")
+        series["backlog"][:, step] = psum(ms, "backlog")
+        series["in_flight"][:, step] = psum(ms, "in_flight")
         if tr_pt:
             # per-tick activity, summed over each replication's shards
-            tser[:, step] = torch.stack(
+            tser[:, step] = mesh.psum([torch.stack(
                 [m["votes"], m["busy_workers"], m["idle_workers"],
-                 m["dropped"], got, gave], -1).reshape(N, S, -1).sum(1)
+                 m["dropped"], got, gave], -1).reshape(N, Sl, -1).sum(1)
+                for m, got, gave in zip(ms, gots, gaves)])
             if adm is not None:
-                adm[:, step] = m["adm_score"].reshape(N, S).sum(-1) / S
+                adm[:, step] = gather_rows([m["adm_score"] for m in ms],
+                                           mesh, N).reshape(N, S).sum(-1) / S
         t = np.float32(t + np.float32(cfg.dt))
-    local = dict(acc)
-    local["cost_wait"] = ws["cost_wait"]
-    local["cost_work"] = ws["cost_work"]
-    local["n_churned"] = ws["n_churned"]
-    local["n_evicted"] = ws["n_evicted"]
-    local["backlog_end"] = bl["count"]
-    local["in_flight_end"] = win["active"].sum(-1)
-    local["stolen"], local["donated"] = stolen, donated
+    for grp, acc in zip(groups, accs):
+        acc["cost_wait"] = grp["ws"]["cost_wait"]
+        acc["cost_work"] = grp["ws"]["cost_work"]
+        acc["n_churned"] = grp["ws"]["n_churned"]
+        acc["n_evicted"] = grp["ws"]["n_evicted"]
+        acc["backlog_end"] = grp["bl"]["count"]
+        acc["in_flight_end"] = grp["win"]["active"].sum(-1)
+        acc["stolen"] = acc.pop("stolen")
+        acc["donated"] = acc.pop("donated")
+    # canonical shard order first, then the one reduction over shards
+    local = gather_rows(accs, mesh, N)
     out = {k: v.reshape((N, S) + v.shape[1:]).sum(1) for k, v in local.items()}
     if tr_ph:
         ph, ps = out.pop("ph"), out.pop("ps")
@@ -1321,14 +1458,13 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
     out["per_shard"] = {k: local[k].reshape(N, S) for k in
                         ("backlog_end", "in_flight_end", "stolen", "donated")}
     out["series"] = series
-    return out, dict(ws=ws, banks=banks, win=win, bl=bl, seeds=seeds,
-                     learner=ls)
+    if "groups" in state:
+        return out, dict(state, groups=groups, learner=ls)
+    return out, dict(groups[0], learner=ls)
 
 
 def _validate_stream_config(cfg: StreamConfig):
-    """The reference's checks, plus a ``NotImplementedError`` for every
-    feature the port does not run yet, so no such config runs silently on
-    another path."""
+    """The reference's checks, with its messages."""
     L = cfg.learner
     if cfg.serve:
         raise ValueError(
@@ -1389,16 +1525,11 @@ def _validate_stream_config(cfg: StreamConfig):
         if sh.steal_slack < 0:
             raise ValueError("sharding.steal_slack must be >= 0, got "
                              f"{sh.steal_slack}")
-    if sh.n_devices < 1 or cfg.n_shards % sh.n_devices:
-        raise ValueError(f"sharding.n_devices={sh.n_devices} must be >= 1 "
-                         f"and divide n_shards={cfg.n_shards}")
+    check_stream_sharding(cfg.n_shards, sh.n_devices)
     if cfg.trace is not None and not isinstance(cfg.trace, TraceConfig):
         raise TypeError("StreamConfig.trace must be None or a TraceConfig "
                         "(repro_torch.obs.trace), got "
                         f"{type(cfg.trace).__name__}")
-    if sh.n_devices > 1:
-        raise NotImplementedError(f"sharding.n_devices={sh.n_devices} "
-                                  "(ROADMAP A13) is not yet ported")
 
 
 def _bank_for(cfg: StreamConfig, device="cuda"):
@@ -1434,26 +1565,36 @@ def _check_bank(cfg: StreamConfig, bank, device):
 def run_stream(cfg: StreamConfig, horizon: int, *, n_reps: int = 1,
                seed: int = 0, warmup_frac: float = 0.3,
                rate_scale: float = 1.0, device="cuda", init=None,
-               arrivals=None, bank=None):
+               arrivals=None, bank=None, devices=None):
     """Run ``n_reps`` replications of the streaming service for ``horizon``
     ticks on ``device``. Steady-state metrics only accumulate after
     ``warmup_frac`` of the horizon; ``rate_scale`` multiplies the offered
     arrival rate. Returns a dict of tensors with leading dim ``n_reps``
     plus ``warmup_t``/``measured_s`` floats.
 
+    With ``sharding.n_devices = D > 1`` the shards run as D groups of
+    ``n_shards / D``, group ``g`` on device ``g`` of
+    :func:`~repro_torch.launch.mesh.make_stream_mesh` (``devices``, a list
+    of D devices that may repeat a card, else the first D cards, or D
+    groups on the CPU for ``device="cpu"``); the results equal the
+    one-group run's bit for bit, and come back on the first group's
+    device.
+
     ``seed`` draws the worker banks and counter seeds (host numpy) and the
-    per-tick arrivals (a ``torch.Generator`` on ``device``). For parity
-    tests, ``init`` replaces the first with a :func:`state_from_numpy`
-    state (which may carry a trained learner) and ``arrivals = (n_new
-    (horizon, n_reps), n_arr (horizon, n_reps, n_shards))`` the second;
-    ``n_arr`` are per-shard counts before the ``max_arrivals_per_tick``
-    cap. ``bank`` (LM features) replaces the embedding bank the run would
-    build (:func:`_bank_for`) with a (2, n_classes, K, n_features) array.
-    With the learner under ``uncertain_learnable`` the result also holds
-    the learnability head's final ``learn2_W`` / ``learn2_b``.
+    per-tick arrivals (a ``torch.Generator`` on the first group's device),
+    each once at full width. For parity tests, ``init`` replaces the first
+    with a :func:`state_from_numpy` state (which may carry a trained
+    learner) and ``arrivals = (n_new (horizon, n_reps), n_arr (horizon,
+    n_reps, n_shards))`` the second; ``n_arr`` are per-shard counts before
+    the ``max_arrivals_per_tick`` cap. ``bank`` (LM features) replaces the
+    embedding bank the run would build (:func:`_bank_for`) with a (2,
+    n_classes, K, n_features) array. With the learner under
+    ``uncertain_learnable`` the result also holds the learnability head's
+    final ``learn2_W`` / ``learn2_b``.
     """
     _validate_stream_config(cfg)
-    dev = resolve_device(device)
+    mesh = make_stream_mesh(cfg.sharding.n_devices, device, devices)
+    dev = mesh.devices[0]
     if init is None:
         init = state_from_numpy(cfg, *draw_init(cfg, n_reps, seed), dev)
     elif init["seeds"].shape[0] != n_reps * cfg.n_shards:
@@ -1465,7 +1606,7 @@ def run_stream(cfg: StreamConfig, horizon: int, *, n_reps: int = 1,
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
     warmup_t = float(warmup_frac * horizon * cfg.dt)
-    out, _ = _run_one(cfg, int(horizon), init,
+    out, _ = _run_one(cfg, int(horizon), shard_state(cfg, init, mesh),
                       float(np.float32(warmup_t)), float(rate_scale), gen,
                       arrivals, bank=_check_bank(cfg, bank, dev))
     out["warmup_t"] = warmup_t
@@ -1783,7 +1924,7 @@ def _validate_serve_config(cfg: StreamConfig):
 
 
 def serve_state_from_numpy(cfg, state: dict, device="cuda",
-                           bank=None) -> dict:
+                           bank=None, devices=None) -> dict:
     """The port's serve state from a serve state given as numpy arrays
     (the reference's ``serve_init`` state, say): ``t``, ``step``, the
     per-shard ``seeds`` (S,) and worker state ``ws`` and ``banks`` (leading
@@ -1792,9 +1933,12 @@ def serve_state_from_numpy(cfg, state: dict, device="cuda",
     ``uncertain_learnable`` ``learn2`` and ``buf_t``). Window and backlog
     start empty. With LM features the state holds the embedding bank:
     ``bank`` (2, C, K, F) if given, else the one :func:`_bank_for`
-    builds."""
+    builds. A sharded config's state is split into its device groups as
+    :func:`serve_init` splits it (``device`` / ``devices`` as there)."""
     cfg = _as_serve_config(cfg)
     _validate_serve_config(cfg)
+    mesh = make_stream_mesh(cfg.sharding.n_devices, device, devices)
+    device = mesh.devices[0]
     lead = lambda d: {k: np.asarray(v)[None] for k, v in d.items()}
     learner = None
     if cfg.learner.enabled:
@@ -1806,11 +1950,13 @@ def serve_state_from_numpy(cfg, state: dict, device="cuda",
     st = state_from_numpy(cfg, lead(state["ws"]), lead(state["banks"]),
                           np.asarray(state["seeds"])[None], device,
                           learner=learner)
-    return dict(st, t=np.float32(state["t"]), step=int(state["step"]),
-                bank=_check_bank(cfg, bank, resolve_device(device)))
+    return shard_state(cfg, dict(
+        st, t=np.float32(state["t"]), step=int(state["step"]),
+        bank=_check_bank(cfg, bank, device)), mesh)
 
 
-def serve_init(cfg, seed: int = 0, device="cuda", bank=None) -> dict:
+def serve_init(cfg, seed: int = 0, device="cuda", bank=None,
+               devices=None) -> dict:
     """The state :func:`serve_tick` advances, on ``device``.
 
     ``cfg`` is a StreamConfig with ``serve=True`` (or a ScenarioSpec,
@@ -1821,12 +1967,22 @@ def serve_init(cfg, seed: int = 0, device="cuda", bank=None) -> dict:
     state holds the embedding bank the ticks gather from: ``bank`` (2, C,
     K, F) if given, else the one :func:`_bank_for` builds on ``device``.
     Returns a dict of tensors plus the host clock ``t`` and tick index
-    ``step``."""
+    ``step``.
+
+    With ``sharding.n_devices = D > 1`` the state is D groups of
+    ``n_shards / D`` shards (:func:`shard_state`), group ``g`` on device
+    ``g`` of :func:`~repro_torch.launch.mesh.make_stream_mesh` (``devices``,
+    else the first D cards, or the CPU for ``device="cpu"``); the learner
+    and the outputs live on the first group's device, the bank is built
+    once and copied to each group. The pools and seeds are drawn at full
+    width and split, so every D serves the same label stream."""
     cfg = _as_serve_config(cfg)
     _validate_serve_config(cfg)
-    st = state_from_numpy(cfg, *draw_init(cfg, 1, seed), device)
-    return dict(st, t=np.float32(0.0), step=0,
-                bank=_check_bank(cfg, bank, resolve_device(device)))
+    mesh = make_stream_mesh(cfg.sharding.n_devices, device, devices)
+    dev = mesh.devices[0]
+    st = state_from_numpy(cfg, *draw_init(cfg, 1, seed), dev)
+    return shard_state(cfg, dict(st, t=np.float32(0.0), step=0,
+                                 bank=_check_bank(cfg, bank, dev)), mesh)
 
 
 _SRV_SLOT = ("fin", "uid", "label", "votes")        # (S, window) integers
@@ -1848,8 +2004,11 @@ def serve_tick(cfg, state: dict, n_arr, uid_base, feat=None, labels=None):
     ``conf`` / ``tis`` give their request uid, fused label, vote count,
     posterior confidence and time in system (S, window); ``dropped``,
     ``backlog``, ``in_flight``, ``stolen``, ``donated`` are per shard (S,),
-    all tensors on the state's device; ``t`` is the post-tick clock (a
-    host float).
+    all tensors on the state's (first group's) device; ``t`` is the
+    post-tick clock (a host float). A sharded state (:func:`serve_init`
+    with ``sharding.n_devices > 1``) advances each device group's shards
+    on its device; the steal and the shared learner read the groups'
+    gathered rows, and the outputs come back gathered in shard order.
 
     With LM features (``learner.feature_kind="lm"``) ``feat`` is an
     optional (S, max_arrivals_per_tick, n_features) float array of
@@ -1882,39 +2041,61 @@ def serve_tick(cfg, state: dict, n_arr, uid_base, feat=None, labels=None):
                          f"got {rows[0].tolist()}")
     if lm and labels is not None:
         rows.append(np.asarray(labels, np.int64).T)    # one copy with n_arr
-    seeds = state["seeds"]
-    dev = seeds.device
+    groups, mesh = _groups(state)
+    D = mesh.size
+    Sl = S // D
+    dev = mesh.devices[0]
     inj = torch.as_tensor(np.concatenate([r.reshape(-1, S) for r in rows]),
                           device=dev)
-    kw = {}
-    if lm:
-        bank = state.get("bank")
-        # a missing ``feat`` / ``labels`` is all NaN / all -1: nothing to
-        # override, so nothing is sent
-        kw = dict(
-            bank=_bank_for(cfg, dev) if bank is None else bank,
-            labels_in=inj[2:].T if labels is not None else None,
-            feat_in=(torch.as_tensor(np.asarray(feat, np.float32),
-                                     device=dev) if feat is not None
-                     else None))
+    feat_t = (torch.as_tensor(np.asarray(feat, np.float32), device=dev)
+              if lm and feat is not None else None)
     t, step, ls = state["t"], state["step"], state["learner"]
-    ws, win, bl, m, train = _shard_tick(
-        cfg, state["ws"], state["banks"], state["win"], state["bl"], inj[0],
-        float(t), step, seeds, 0.0, _learner_tick_params(cfg, ls),
-        uid_base=inj[1], **kw)
+    lp = _learner_tick_params(cfg, ls, Sl)
+    groups = [dict(g) for g in groups]
+    ms, trains = [], []
+    for g, grp in enumerate(groups):
+        d = mesh.devices[g]
+        cols = slice(g * Sl, (g + 1) * Sl)
+        inj_g = inj[:, cols].to(d)
+        kw = {}
+        if lm:
+            bank = grp.get("bank")
+            # a missing ``feat`` / ``labels`` is all NaN / all -1: nothing
+            # to override, so nothing is sent
+            kw = dict(
+                bank=_bank_for(cfg, d) if bank is None else bank,
+                labels_in=inj_g[2:].T if labels is not None else None,
+                feat_in=feat_t[cols].to(d) if feat_t is not None else None)
+        ws, win, bl, m, train = _shard_tick(
+            cfg, grp["ws"], grp["banks"], grp["win"], grp["bl"], inj_g[0],
+            float(t), step, grp["seeds"], 0.0, _to(lp, d),
+            uid_base=inj_g[1], **kw)
+        grp.update(ws=ws, win=win, bl=bl)
+        ms.append(m)
+        trains.append(train)
     if cfg.sharding.steal != "none":
-        bl, got, gave = _steal_rebalance(cfg, bl)
+        bls, got, gave = _steal_rebalance(
+            cfg, [grp["bl"] for grp in groups], mesh)
+        for grp, b in zip(groups, bls):
+            grp["bl"] = b
     else:
-        got = gave = torch.zeros_like(m["dropped"])
+        got = gave = [torch.zeros_like(m["dropped"]) for m in ms]
     if ls is not None:
-        ls = _learner_push_fit(cfg, ls, train, step)
+        ls = _learner_push_fit(cfg, ls, gather_rows(trains, mesh, 1), step)
     t_new = np.float32(t + np.float32(cfg.dt))
-    new = dict(state, ws=ws, win=win, bl=bl, learner=ls, t=t_new,
-               step=step + 1)
-    out = {k: m["srv_" + k] for k in _SRV_SLOT + _SRV_FLOAT}
-    out.update(dropped=m["dropped"], backlog=bl["count"],
-               in_flight=win["active"].sum(-1), stolen=got, donated=gave,
-               t=float(t_new))
+    if "groups" in state:
+        new = dict(state, groups=groups)
+    else:
+        new = dict(groups[0])
+    new.update(learner=ls, t=t_new, step=step + 1)
+    gat = lambda xs: gather_rows(xs, mesh, 1)
+    out = {k: gat([m["srv_" + k] for m in ms])
+           for k in _SRV_SLOT + _SRV_FLOAT}
+    out.update(dropped=gat([m["dropped"] for m in ms]),
+               backlog=gat([grp["bl"]["count"] for grp in groups]),
+               in_flight=gat([grp["win"]["active"].sum(-1)
+                              for grp in groups]),
+               stolen=gat(got), donated=gat(gave), t=float(t_new))
     return new, out
 
 

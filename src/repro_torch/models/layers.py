@@ -16,7 +16,7 @@ position on either device.
 
 :func:`apply_moe` is the reference's ``apply_moe`` with ``groups=1``.
 ``apply_moe_shardmap`` and ``_moe_local`` dispatch inside a device mesh
-and stay with the multi-device work (ROADMAP A13).
+and stay with the multi-device work (ROADMAP A13b).
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ through the flash kernel.
 The reference's ``constrain``, ``mesh``, ``moe_groups``, ``opt`` and
 ``attn_impl`` arguments shard or retune the computation over a device
 mesh; on one card they have nothing to do and stay with the multi-device
-work (ROADMAP A13).
+work (ROADMAP A13b).
 """
 from __future__ import annotations
 

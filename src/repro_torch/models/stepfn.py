@@ -12,7 +12,7 @@ forward and the backward (remat's recompute included) inside
 the forward's do whatever the global matmul settings are. The reference's
 ``attn_impl``, ``constrain``, ``moe_groups``, ``mesh`` and ``opt``
 arguments shard or retune the step over a device mesh and stay with the
-multi-device work (ROADMAP A13).
+multi-device work (ROADMAP A13b).
 """
 from __future__ import annotations
 

@@ -113,7 +113,7 @@ def _attach_trace(out: dict, scenario: ScenarioSpec) -> dict:
 def run(scenario, engine: str = None, *, seed: int = 0, n_reps: int = 1,
         horizon: int = None, rate_scale: float = 1.0,
         warmup_frac: float = 0.3, true_labels=None, max_time: float = None,
-        device="cuda") -> dict:
+        device="cuda", devices=None) -> dict:
     """Run ``scenario`` on ``engine`` (default: the scenario's preferred
     compatible engine — simfast for batch workloads, stream otherwise) on
     ``device``.
@@ -127,7 +127,10 @@ def run(scenario, engine: str = None, *, seed: int = 0, n_reps: int = 1,
     ``warmup_frac`` (stream; ``horizon`` defaults to the spec's),
     ``true_labels`` (batch engines), ``max_time`` (events: the budget in
     simulated seconds); on events ``n_reps`` runs seeds ``seed .. seed +
-    n_reps - 1``.
+    n_reps - 1``. ``devices`` lists the device groups of a device-sharded
+    stream scenario (``sharding.n_devices > 1``; see
+    :func:`~repro_torch.launch.mesh.make_stream_mesh`) or the devices the
+    batch engine splits its replications across.
     """
     if not isinstance(scenario, ScenarioSpec):
         raise TypeError("run() takes a ScenarioSpec (use get_scenario or "
@@ -140,7 +143,7 @@ def run(scenario, engine: str = None, *, seed: int = 0, n_reps: int = 1,
         raw = run_stream(cfg, horizon if horizon is not None
                          else scenario.horizon, n_reps=n_reps, seed=seed,
                          warmup_frac=warmup_frac, rate_scale=rate_scale,
-                         device=device)
+                         device=device, devices=devices)
         out.update(config=cfg, metrics=stream_summary(cfg, raw), raw=raw)
         return _attach_trace(out, scenario)
     if engine == "simfast":
@@ -148,7 +151,7 @@ def run(scenario, engine: str = None, *, seed: int = 0, n_reps: int = 1,
         from repro_torch.core.simfast_stats import summarize
         cfg = to_fast_config(scenario)
         raw = simulate(cfg, n_reps, seed=seed, true_labels=true_labels,
-                       device=device)
+                       device=device, devices=devices)
         out.update(config=cfg, metrics=dataclasses.asdict(summarize(raw)),
                    raw=raw)
         return _attach_trace(out, scenario)
@@ -192,16 +195,18 @@ def _vectorized(axis, values, engine, raw, summary):
 
 def sweep(scenario, axis: str, values, engine: str = None, *, seed: int = 0,
           n_reps: int = 1, horizon: int = None, warmup_frac: float = 0.3,
-          true_labels=None, device="cuda") -> dict:
+          true_labels=None, device="cuda", devices=None) -> dict:
     """Run ``scenario`` at each value of one axis (``axis`` is a dotted
     spec path). The axes the reference vectorizes run as one batched run
     (``vectorized=True``, with the stacked outputs as ``raw``): the stream
     engine's ``arrivals.rate`` (not for mmpp, whose burst rate must not
-    scale), ``policy.redundancy.votes`` and the ``StreamTraced`` axes (one
-    device), and the batch engine's ``SimScales`` pool axes (the recruit
-    axis only on a retainer pool) and Beta accuracy prior. Anything else
-    runs one :func:`run` per value (``vectorized=False``). Returns
-    ``{"axis", "values", "engine", "vectorized", "results"}`` with
+    scale), ``policy.redundancy.votes`` and the ``StreamTraced`` axes (a
+    device-sharded spec runs those per value: ``run_stream_grid`` spends
+    its batch on values, not on device groups), and the batch engine's
+    ``SimScales`` pool axes (the recruit axis only on a retainer pool) and
+    Beta accuracy prior. Anything else runs one :func:`run` per value
+    (``vectorized=False``), on ``devices`` as :func:`run` takes them.
+    Returns ``{"axis", "values", "engine", "vectorized", "results"}`` with
     ``results[i]`` the metrics dict at ``values[i]``."""
     if not isinstance(scenario, ScenarioSpec):
         raise TypeError("sweep() takes a ScenarioSpec, got "
@@ -271,7 +276,8 @@ def sweep(scenario, axis: str, values, engine: str = None, *, seed: int = 0,
         pop = PopTraced()._replace(**{axis.split(".")[1]:
                                       np.asarray(values, np.float64)})
         raw = simulate_swept_pop(cfg, n_reps, pop, seed=seed,
-                                 true_labels=true_labels, device=device)
+                                 true_labels=true_labels, device=device,
+                                 devices=devices)
         return _vectorized(axis, values, engine, raw,
                            lambda o: dataclasses.asdict(summarize(o)))
 
@@ -291,7 +297,8 @@ def sweep(scenario, axis: str, values, engine: str = None, *, seed: int = 0,
             _SIMFAST_AXES[axis]: np.asarray([v / base for v in values],
                                             np.float32)})
         raw = simulate_swept(cfg, n_reps, scales, seed=seed,
-                             true_labels=true_labels, device=device)
+                             true_labels=true_labels, device=device,
+                             devices=devices)
         return _vectorized(axis, values, engine, raw,
                            lambda o: dataclasses.asdict(summarize(o)))
 
@@ -299,7 +306,7 @@ def sweep(scenario, axis: str, values, engine: str = None, *, seed: int = 0,
     for v in values:
         res = run(override(scenario, {axis: v}), engine, seed=seed,
                   n_reps=n_reps, horizon=horizon, warmup_frac=warmup_frac,
-                  true_labels=true_labels, device=device)
+                  true_labels=true_labels, device=device, devices=devices)
         results.append(res["metrics"])
     return dict(axis=axis, values=values, engine=engine, vectorized=False,
                 results=results)

@@ -208,8 +208,9 @@ class ShardingSpec:
 
     The pool's ``n_shards`` shards are split into equal per-device groups
     and the whole tick runs under ``shard_map`` over a 1-D ``("shard",)``
-    mesh in the reference; the port runs one device (``n_devices > 1`` is
-    ROADMAP A13).  ``steal="pressure"`` turns on
+    mesh in the reference, over the device groups of a
+    ``repro_torch.launch.mesh.StreamMesh`` in the port (one controller, D
+    devices; a card may hold several groups).  ``steal="pressure"`` turns on
     cross-shard work stealing: each tick the shards exchange fixed-shape
     backlog-pressure summaries (all-gather), shards more than
     ``steal_slack`` tasks above the global mean donate up to ``steal_max``

@@ -89,13 +89,17 @@ class LabelServer:
     through ``to_serve_config``) or a ready serve-mode ``StreamConfig``
     (then the keyword overrides supply the HTTP surface). Drive it inside a
     running event loop (``await server.start()`` ... ``await
-    server.close()``), or through :mod:`repro_torch.launch.serve`.
+    server.close()``), or through :mod:`repro_torch.launch.serve`. A
+    device-sharded scenario (``sharding.n_devices > 1``) serves from its
+    device groups (``devices``, else the first cards, or the CPU; see
+    :func:`~repro_torch.labelstream.router.serve_init`).
     """
 
     def __init__(self, spec, *, seed: int = 0, host: str = None,
                  port: int = None, tick_interval_s: float = None,
                  max_pending: int = None, request_timeout_s: float = None,
-                 drain_timeout_s: float = None, device="cuda"):
+                 drain_timeout_s: float = None, device="cuda",
+                 devices=None):
         from repro_torch.device import resolve_device
         from repro_torch.labelstream.router import (
             StreamConfig, _as_serve_config, _validate_serve_config,
@@ -116,6 +120,7 @@ class LabelServer:
         self.drain_timeout_s = pick(drain_timeout_s,
                                     sv.drain_timeout_s if sv else 10.0)
         self.seed = seed
+        self.devices = devices
 
         S = self.cfg.n_shards
         # LM scenarios take real text: a tick embeds its texted
@@ -161,7 +166,8 @@ class LabelServer:
     def _init_state(self):
         from repro_torch.labelstream.router import serve_init
         with self._on_device():
-            return serve_init(self.cfg, self.seed, self.device)
+            return serve_init(self.cfg, self.seed, self.device,
+                              devices=self.devices)
 
     async def start(self):
         loop = asyncio.get_running_loop()

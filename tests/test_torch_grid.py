@@ -296,13 +296,24 @@ def test_events_grid_runs_per_cell_equal_reference():
 
 
 def test_sharded_stream_class_falls_back_per_cell_and_names_a13():
+    """A device-sharded stream class is one class that runs per cell (the
+    reference's fallback), each cell through the sharded ``run_stream`` on
+    its two shard groups: every cell equals its standalone run, sharded or
+    not, bit for bit."""
     g = T.GridSpec(base=T.get_scenario("stream_sharded",
                                        {"sharding.n_devices": 2}),
                    axes=(("arrivals.rate", (0.01, 0.02)),))
-    _, _, classes = tgrid.partition_grid(g)
+    _, cells, classes = tgrid.partition_grid(g)
     assert len(classes) == 1
-    with pytest.raises(NotImplementedError, match="A13"):
-        tgrid.run_grid(g, horizon=2, device="cpu")
+    got = tgrid.run_grid(g, horizon=40, n_reps=2, seed=1, keep_raw=True,
+                         device="cpu")
+    assert [c["batched"] for c in got["classes"]] == [False]
+    for cell, (_, _, spec) in zip(got["cells"], cells):
+        alone = T.run(spec, horizon=40, n_reps=2, seed=1, device="cpu")
+        one = T.run(T.override(spec, {"sharding.n_devices": 1}), horizon=40,
+                    n_reps=2, seed=1, device="cpu")
+        assert cell["metrics"] == alone["metrics"] == one["metrics"]
+        _same(cell["raw"], one["raw"])
 
 
 # ---- the artifact and the command line -----------------------------------

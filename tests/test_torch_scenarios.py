@@ -250,9 +250,10 @@ def test_name_keyed_helpers_are_registry_lowerings():
 
 
 def test_trace_and_events_raise_naming_their_item():
-    """Traces lower to the port's TraceConfig on both batched engines; what
-    is still not ported (device sharding) raises ``NotImplementedError``
-    naming its ROADMAP item. The event loop and LM stream features run."""
+    """Traces lower to the port's TraceConfig on both batched engines. The
+    event loop, LM stream features and device sharding run: a spec with
+    ``sharding.n_devices = 2`` runs its two shard groups on the CPU and
+    equals the one-group run bit for bit."""
     from repro_torch.obs.trace import TraceConfig
     traced = T.override(T.get_scenario("stream_default"),
                         {"trace.enabled": True})
@@ -266,10 +267,14 @@ def test_trace_and_events_raise_naming_their_item():
     lm = T.run(T.get_scenario("lm_stream"), horizon=4, device="cpu")
     assert lm["config"].learner.feature_kind == "lm"
     assert lm["raw"]["series"]["arrivals"].shape == (1, 4)
-    with pytest.raises(NotImplementedError, match="A13"):
-        T.run(T.override(T.get_scenario("stream_sharded"),
-                         {"sharding.n_devices": 2}), horizon=2,
-              device="cpu")
+    sharded = T.run(T.override(T.get_scenario("stream_sharded"),
+                               {"sharding.n_devices": 2}), horizon=40,
+                    device="cpu")
+    one = T.run(T.get_scenario("stream_sharded"), horizon=40, device="cpu")
+    assert sharded["config"].sharding.n_devices == 2
+    assert sharded["metrics"] == one["metrics"]
+    assert torch.equal(sharded["raw"]["per_shard"]["in_flight_end"],
+                       one["raw"]["per_shard"]["in_flight_end"])
     ev = T.run(T.get_scenario("smallR1"), "events", n_reps=2, seed=1,
                device="cpu")
     assert ev["metrics"] == J.run(J.get_scenario("smallR1"), "events",

@@ -166,7 +166,9 @@ def test_stream_matches_reference_with_injected_draws(name, overrides):
     (dict(learner=StreamLearnerConfig(enabled=True, feature_kind="lm")),
      ValueError),
     (dict(trace=object()), TypeError),
-    (dict(sharding=ShardingConfig(n_devices=2)), NotImplementedError),
+    # a sharded run whose devices= list does not hold n_devices groups
+    (dict(sharding=ShardingConfig(n_devices=2), devices=["cpu"]),
+     ValueError),
     (dict(serve=True), ValueError),
     (dict(routing=RoutingConfig(admission="uncertain")), ValueError),
     (dict(routing=RoutingConfig(admission="lifo")), ValueError),
@@ -186,9 +188,11 @@ def test_stream_matches_reference_with_injected_draws(name, overrides):
      ValueError),
 ])
 def test_unported_or_invalid_configs_raise(change, err):
+    change = dict(change)
+    kw = {k: change.pop(k) for k in ("devices",) if k in change}
     cfg = dataclasses.replace(get_stream_config("stream_default"), **change)
     with pytest.raises(err):
-        tr.run_stream(cfg, 5, n_reps=1, device="cpu")
+        tr.run_stream(cfg, 5, n_reps=1, device="cpu", **kw)
 
 
 def test_cuda_run_without_card_raises(monkeypatch):
