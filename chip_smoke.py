@@ -102,8 +102,8 @@ drives the port's main path on the card:
      ``model_known > 0`` with the learner, as much stolen as donated, and
      the first 8 replications equal to a CPU run of the port on the same
      initial state and arrivals (else the first differing tick and state
-     are named); ticks per second, and a profiled 80-tick window of (a)
-     and (b);
+     are named); ticks per second, and a profiled 40-tick window of (a)
+     and (b) (80 before phase 21);
  15. the scenario front door and the live serve path: (a) the registry
      smoke (``repro_torch.scenarios.smoke``) on the card, every (scenario,
      engine) pair;
@@ -223,7 +223,33 @@ drives the port's main path on the card:
      round per group, the kernel at a group's shape against its plain
      version and timed; (e) ``lm_stream`` at full width at D = 2 for 60
      ticks (the bank built once, copied to each group), bit-equal to
-     D = 1.
+     D = 1;
+ 21. the LM stack on a 2 x 2 ``("data", "model")`` mesh
+     (``make_local_mesh(2, 2, devices=...)``: the first four cards where
+     the machine has four, else every slot on ``cuda:0``, said):
+     granite-moe-3b-a800m at its published widths, depth cut to 4 layers,
+     random float32 masters drawn on the card from a seed, laid out by the
+     sharding rules (the bytes each slot holds checked against the specs'
+     share); (a) 3 train steps at 4 x 256 tokens with the MoE island
+     (``moe_groups`` = 4), twice, bit for bit: loss, aux, grad norm, ms per
+     step, the kernels of a profiled step, ``flash_attention`` /
+     ``streaming_xent`` launches and island slots per step, peak memory;
+     (a') 3 steps at 2 layers in float32 against the port's CPU run of
+     the same mesh, each from the card's state: every dispatch's routing
+     integers equal; the loss, the grad norm and, per leaf, the step's
+     move of AdamW's first moment (the clipped gradient) within the
+     bounds of ``GATE``, which the planted faults (gradients zeroed,
+     halved, one data group's dropped) must fall outside; (b) prefill of
+     4 x 512 tokens and 8 greedy decode steps on the mesh at 4 layers,
+     twice, bit for bit (b': at 2 layers in float32 against the CPU,
+     routing equal, the logits within ``GATE``, and a bfloat16 run and a
+     decode from a stale cache outside it); (c)
+     ``Trainer`` on the mesh (the reduced model), 4 steps with a
+     checkpoint at 2: a crash and restore equal to the straight run, the
+     mesh checkpoint restored on one card; then the mesh step's
+     ``flash_attention`` and ``streaming_xent`` kernels, forward and
+     backward, at a data group's shapes against their plain versions,
+     timed beside their bounds and the library calls.
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -238,7 +264,11 @@ build: the LM stream launches none); with ``--phase18`` only the registry
 smoke, the build of ``ds_estep`` and ``entropy`` and phase 18; with
 ``--phase19`` only the build of ``flash_attention`` and ``linear_scan`` and
 phase 19; with ``--phase20`` only the build of ``ds_estep`` and
-``entropy`` and phase 20; with ``--lm-depth`` only the
+``entropy`` and phase 20; with ``--phase21`` only the build of
+``flash_attention`` (both sources) and ``xent`` and phase 21; with
+``--mesh-gates`` only that build and phase 21's (a') and (b') for the
+seeds 22, 23 and 24 (the readings of the float32 gates, sound and
+planted, over seeds); with ``--lm-depth`` only the
 full-width xlstm-125m forward on the card against the CPU, group by group,
 in bfloat16 and float32, beside the forward's own response to a one-ulp
 move of its input (how far bfloat16 rounding alone carries with depth).
@@ -660,9 +690,9 @@ def stream_learner_phase(card: str):
             f"output equal (CPU run {cpu_s:.1f} s)")
         tick_us[label] = 1e6 * secs / h
 
-    # where a tick's time goes: 80 ticks of (a) and (b) under the profiler
+    # where a tick's time goes: 40 ticks of (a) and (b) under the profiler
     for label, _, cfg, _ in runs[:2]:
-        Hp = 80
+        Hp = 40
         wall, n_k, busy, by_name = device_profile(
             lambda: router.run_stream(cfg, Hp, n_reps=N, seed=SEED + 1,
                                       device="cuda"))
@@ -2498,8 +2528,10 @@ def lm_stack_phase(card: str) -> dict:
 def group_hidden(x, gp, group, mcfg):
     """One stacked group of the model's train-mode forward on x."""
     from repro_torch.models import model as mmodel
-    return mmodel._group_body(x, x.new_zeros(()), gp, None, group, mcfg,
-                              {"mode": "train", "mlstm_impl": "chunked"})[0]
+    one = mmodel._Groups(None, x.shape[0], x.dtype, x.device)
+    return mmodel._run_group([x], x.new_zeros(()), gp, None, group, mcfg,
+                             [{"mode": "train", "mlstm_impl": "chunked"}],
+                             one, False, None)[0][0]
 
 
 def sharded_phase(card: str) -> dict:
@@ -2759,6 +2791,600 @@ def sharded_phase(card: str) -> dict:
                      library_ms=h_lib))
 
 
+@contextlib.contextmanager
+def moe_routes(rec: list):
+    """While open, appends every ``moe_dispatch`` result of the port's
+    layers (``topi`` as sets, sorted per token: the order of a token's
+    picks changes nothing downstream; ``dest``, ``keep``, and the gap
+    between each token's k-th and (k+1)-th router probability, on the
+    CPU) to ``rec``."""
+    from repro_torch.models import layers as mlayers
+    inner = mlayers.moe_dispatch
+
+    def recorded(probs, k, C):
+        r = inner(probs, k, C)
+        top = torch.topk(probs.detach(), min(k + 1, probs.shape[-1])).values
+        rec.append({"topi": torch.sort(r["topi"], -1).values.cpu(),
+                    "dest": r["dest"].cpu(), "keep": r["keep"].cpu(),
+                    "gap": (top[:, k - 1] - top[:, -1]).cpu()})
+        return r
+
+    mlayers.moe_dispatch = recorded
+    try:
+        yield rec
+    finally:
+        mlayers.moe_dispatch = inner
+
+
+# Phase 21's float32 gates, card against the CPU. (a'): the train step's
+# loss (relative), its grad norm (relative) and, per parameter leaf, the
+# step's move of AdamW's first moment, mu - b1 mu_before = (1 - b1) times
+# the clipped gradient (relative norm of the difference, and 1 - cosine).
+# (b'): prefill and decode logits, the relative norm of the difference of
+# each of the 9 sets of (B, V) logits.
+GATE = {"loss": 1e-4, "grad_norm": 1e-4, "mu_rel": 2e-3, "mu_cos": 1e-6,
+        "logits": 2e-3}
+
+
+class _PlantedAdamW:
+    """AdamW whose gradients are scaled by ``factor`` before its step (a
+    planted fault: 0 zeroes them, 0.5 halves them)."""
+
+    def __init__(self, factor):
+        from repro_torch.training.optimizer import AdamW
+        self.inner, self.factor = AdamW(), factor
+
+    def update_(self, grads, state, params):
+        from repro_torch.models.params import leaves
+        for leaf in leaves(grads, torch.is_tensor):
+            for t in leaf.flat():
+                t.mul_(self.factor)
+        return self.inner.update_(grads, state, params)
+
+
+@contextlib.contextmanager
+def drop_data_group():
+    """While open, every gathered weight's backward drops the gradients of
+    the copies past the first half of its targets: data group 1's
+    contribution to every weight gradient (a planted fault of the reduce
+    over ``data``)."""
+    from repro_torch.distributed import sharding as tsh
+    cls = tsh._GatherCopies
+    inner = cls.__dict__["backward"]
+
+    def backward(ctx, *grads):
+        keep = max(1, len(grads) // 2)
+        return inner.__func__(ctx, *(g if k < keep else None
+                                     for k, g in enumerate(grads)))
+
+    cls.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        cls.backward = inner
+
+
+def mesh_gates(card: str, mesh, cpu_mesh, seed: int, B=4, S=256, P=512,
+               steps=3) -> dict:
+    """Phase 21 (a') and (b'): granite-moe-3b-a800m at 2 layers in float32
+    on ``mesh`` (the card) against ``cpu_mesh``, weights and tokens from
+    ``seed``. (a') ``steps`` train steps, each starting the CPU from the
+    card's state; after step 1 the planted faults (gradients zeroed,
+    halved, data group 1's dropped) step the card from the same state.
+    (b') prefill B x P and 8 greedy decode steps, the CPU fed the card's
+    tokens; the planted faults run the card in bfloat16, and decode from
+    the prefill's cache at every step. Routing (``topi``, ``dest``,
+    ``keep`` per slot) must be equal, every reading within :data:`GATE`
+    and every planted fault's reading outside it. Returns the readings."""
+    from repro_torch.distributed import sharding as tsh
+    from repro_torch.models import stepfn
+    from repro_torch.models.model import model_template
+    from repro_torch.models.params import leaves, tree_map
+    from repro_torch.training.optimizer import AdamW
+    f32, GRANITE = torch.float32, "granite-moe-3b-a800m"
+    t_a = time.perf_counter()
+    cfg, ps, _ = card_model(GRANITE, seed, master=True, n_layers=2)
+    sp = tsh.put(ps, tsh.param_pspecs(model_template(cfg), mesh), mesh)
+    del ps
+    opt = AdamW()
+    st_c = {"params": sp, "opt_state": opt.init(sp),
+            "step": torch.zeros((), dtype=torch.int32, device=mesh.lead)}
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+    targets = toks[:, 1:].copy()
+    targets[0, :40] = -1                   # data group 0 counts fewer
+    batch = {"tokens": torch.from_numpy(toks[:, :S]).cuda(),
+             "targets": torch.from_numpy(targets).cuda()}
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    is_sh = lambda x: isinstance(x, tsh.Sharded)
+
+    def copied(tree, m2, dev):
+        # the same layout on mesh m2, each piece copied (onto ``dev``)
+        cp = lambda t: t.clone() if dev is None else t.to(dev, copy=True)
+        return tree_map(lambda x: tsh.Sharded(
+            m2, x.spec, x.shape, [[cp(p) for p in row]
+                                  for row in x.pieces]), tree, is_sh)
+
+    def state_on(st, m2, dev=None):
+        o, cp = st["opt_state"], lambda t: t.to(dev or t.device, copy=True)
+        return {"params": copied(st["params"], m2, dev),
+                "opt_state": {"mu": copied(o["mu"], m2, dev),
+                              "nu": copied(o["nu"], m2, dev),
+                              "count": cp(o["count"])},
+                "step": cp(st["step"])}
+
+    # remat off (it changes no number): the CPU skips the recompute
+    mk = lambda o, m2: stepfn.make_train_step(
+        cfg, o, remat=False, mesh=m2, moe_groups=m2.size, compute_dtype=f32)
+    step_c, step_h = mk(opt, mesh), mk(AdamW(), cpu_mesh)
+    faults = {"zeroed": mk(_PlantedAdamW(0.0), mesh),
+              "halved": mk(_PlantedAdamW(0.5), mesh),
+              "group 1 dropped": mk(AdamW(), mesh)}
+    b1, lr = opt.b1, opt.lr
+
+    def moved(mu, mu0):
+        # per leaf, the step's move of mu, whole on the card, float64
+        return [a.double() - b1 * b for a, b in zip(
+            leaves(tsh.gather(mu, mesh.lead), torch.is_tensor), mu0)]
+
+    def readings(mc, mu_c, mh, mu_h):
+        gn = abs(mc["grad_norm"].item() - mh["grad_norm"].item()) \
+            / mh["grad_norm"].item()
+        rel, cos = 0.0, 0.0
+        for a, b in zip(mu_c, mu_h):
+            na, nb = float(a.norm()), float(b.norm())
+            if nb == 0.0 and na == 0.0:
+                continue
+            rel = max(rel, float((a - b).norm()) / max(nb, 1e-300))
+            cos = max(cos, 1.0 - float((a * b).sum())
+                      / max(na * nb, 1e-300))
+        return {"grad_norm": gn, "mu_rel": rel, "mu_cos": cos}
+
+    sound, planted, dl, dp, n_disp = [], {}, 0.0, 0.0, 0
+    t_card = t_cpu = 0.0
+    for s_ in range(steps):
+        st_h = state_on(st_c, cpu_mesh, "cpu")
+        mu0 = leaves(tsh.gather(st_c["opt_state"]["mu"], mesh.lead),
+                     torch.is_tensor)
+        twins = ({k: state_on(st_c, mesh) for k in faults}
+                 if s_ == 0 else {})
+        t0 = time.perf_counter()
+        with moe_routes([]) as rc:
+            st_c, mc = step_c(st_c, batch)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with moe_routes([]) as rh:
+            st_h, mh = step_h(st_h, cpu_batch)
+        t_card, t_cpu = t_card + t1 - t0, t_cpu + time.perf_counter() - t1
+        for n, (a, b) in enumerate(zip(rc, rh)):
+            if not all(torch.equal(a[k], b[k])
+                       for k in ("topi", "dest", "keep")):
+                bad = (a["topi"] != b["topi"]).any(-1).nonzero()
+                bad = bad.reshape(-1).tolist()
+                fail(f"[mesh a'] step {s_ + 1}, dispatch {n} of {len(rc)}: "
+                     f"float32 routing differs between card and CPU at "
+                     f"tokens {bad[:8]} (CPU gaps "
+                     f"{[b['gap'][t].item() for t in bad[:8]]}; {len(bad)} "
+                     f"differ in topi)")
+        check(len(rc) == len(rh) > 0, "[mesh a'] no MoE dispatch seen")
+        n_disp += len(rc)
+        lc, lh = mc["loss"].item(), mh["loss"].item()
+        dl = max(dl, abs(lc - lh) / abs(lh))
+        dp = max(dp, max(float((a.cpu() - b).abs().max()) for x, y in zip(
+            leaves(st_c["params"], torch.is_tensor),
+            leaves(st_h["params"], torch.is_tensor))
+            for a, b in zip(x.flat(), y.flat())))
+        mu_h = moved(st_h["opt_state"]["mu"], mu0)
+        r = readings(mc, moved(st_c["opt_state"]["mu"], mu0), mh, mu_h)
+        sound.append(r)
+        say(f"[mesh a'] step {s_ + 1}: loss {lc:.6f} vs {lh:.6f}, grad norm "
+            f"{mc['grad_norm'].item():.6f} vs {mh['grad_norm'].item():.6f} "
+            f"(rel {r['grad_norm']:.3g}), mu's move per leaf: max rel "
+            f"{r['mu_rel']:.3g}, max 1 - cos {r['mu_cos']:.3g}")
+        for name, tw in twins.items():
+            with (drop_data_group() if name == "group 1 dropped"
+                  else contextlib.nullcontext()):
+                tw, mf = faults[name](tw, batch)
+            planted[name] = readings(mf, moved(tw["opt_state"]["mu"], mu0),
+                                     mh, mu_h)
+            del tw
+        del st_h, mu0, mu_h, twins
+    worst = {k: max(r[k] for r in sound) for k in sound[0]}
+    say(f"[mesh a'] 2 layers in float32, {steps} steps on the 2 x 2 mesh, "
+        f"card vs CPU (each step from the card's state; seed {seed}): "
+        f"routing equal in all {n_disp} dispatches (topi, dest, keep per "
+        f"slot), loss max rel {dl:.3g} (bound {GATE['loss']:g}), grad norm "
+        f"max rel {worst['grad_norm']:.3g} (bound {GATE['grad_norm']:g}), "
+        f"mu's move max rel {worst['mu_rel']:.3g} (bound "
+        f"{GATE['mu_rel']:g}), max 1 - cos {worst['mu_cos']:.3g} (bound "
+        f"{GATE['mu_cos']:g}), max |d param| {dp:.3g} (2 lr "
+        f"{2 * lr * 1.01:.3g}); card {t_card:.2f} s, CPU {t_cpu:.2f} s")
+    for name, r in planted.items():
+        say(f"[mesh a'] planted fault, gradient {name}, step 1: grad norm "
+            f"rel {r['grad_norm']:.3g}, mu's move max rel {r['mu_rel']:.3g}"
+            f", max 1 - cos {r['mu_cos']:.3g}")
+    check(dl <= GATE["loss"] and dp <= 2 * lr * 1.01 and all(
+        worst[k] <= GATE[k] for k in worst),
+          f"[mesh a'] card vs CPU outside the gate: loss rel {dl:.3g}, "
+          f"{worst}, max |d param| {dp:.3g} (bounds {GATE}, 2 lr "
+          f"{2 * lr * 1.01:.3g})")
+    for name, r in planted.items():
+        check(any(r[k] > GATE[k] for k in r),
+              f"[mesh a'] the gate passes the planted fault (gradient "
+              f"{name}): {r}")
+    say(f"[mesh a'] took {time.perf_counter() - t_a:.1f} s")
+
+    # (b') prefill B x P + 8 greedy decode steps, float32
+    t_b = time.perf_counter()
+    st_h = {"params": copied(st_c["params"], cpu_mesh, "cpu")}
+    ptoks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))).cuda()
+
+    def serve(params, m2, dtype, forced=None, stale=False):
+        pre = stepfn.make_prefill_step(cfg, mesh=m2, moe_groups=m2.size,
+                                       compute_dtype=dtype)
+        dec = stepfn.make_decode_step(cfg, mesh=m2, compute_dtype=dtype)
+        with moe_routes([]) as rec:
+            lg, cache = pre(params, {"tokens": ptoks.to(m2.lead)})
+            first, lgs, toks_ = cache, [lg.cpu()], []
+            for n in range(8):
+                tok = (lgs[-1].argmax(-1)[:, None] if forced is None
+                       else forced[n]).to(m2.lead)
+                toks_.append(tok.cpu())
+                lg, cache = dec(params, first if stale else cache, tok,
+                                torch.full((B,), P + n, device=m2.lead))
+                lgs.append(lg.cpu())
+        return lgs, rec, toks_
+
+    far = lambda a, b: max(float((x.double() - y.double()).norm()
+                                 / y.double().norm()) for x, y in zip(a, b))
+    lc, rc, tc = serve(st_c["params"], mesh, f32)
+    lh, rh, _ = serve(st_h["params"], cpu_mesh, f32, forced=tc)
+    rel = far(lc, lh)
+    check(all(torch.equal(a[k], b[k]) for a, b in zip(rc, rh)
+              for k in ("topi", "dest", "keep")),
+          "[mesh b'] float32 prefill / decode: routing differs")
+    served = {"bfloat16 compute": serve(st_c["params"], mesh,
+                                        torch.bfloat16, forced=tc)[0],
+              "decode from the prefill's cache": serve(
+                  st_c["params"], mesh, f32, forced=tc, stale=True)[0]}
+    served = {k: far(v, lh) for k, v in served.items()}
+    say(f"[mesh b'] 2 layers in float32, prefill {B} x {P} + 8 greedy "
+        f"decode steps on the mesh, card vs CPU (seed {seed}): routing "
+        f"equal in {len(rc)} dispatches, logits |card - CPU| / |CPU| max "
+        f"{rel:.3g} over the 9 sets (bound {GATE['logits']:g}); planted "
+        + ", ".join(f"{k} {v:.3g}" for k, v in served.items())
+        + f" ({time.perf_counter() - t_b:.1f} s); {card}")
+    check(rel <= GATE["logits"],
+          f"[mesh b'] float32 prefill / decode: logits {rel:.3g} apart "
+          f"(bound {GATE['logits']:g})")
+    for k, v in served.items():
+        check(v > GATE["logits"],
+              f"[mesh b'] the gate passes the planted fault ({k}): {v:.3g}")
+    return {"train": sound, "train_planted": planted, "loss": dl,
+            "logits": rel, "logits_planted": served}
+
+
+def card_meshes():
+    """Phase 21's 2 x 2 mesh, its slots on the first four cards where the
+    machine has four, else all on ``cuda:0`` (said), and the same mesh on
+    the CPU."""
+    from repro_torch.launch.mesh import make_local_mesh
+    devs = ([f"cuda:{i}" for i in range(4)]
+            if torch.cuda.device_count() >= 4 else ["cuda:0"] * 4)
+    mesh = make_local_mesh(2, 2, devices=devs)
+    say(f"[mesh] make_local_mesh(2, 2, devices={devs}): slots "
+        f"{[[str(d) for d in row] for row in mesh.devices]}")
+    check(all(d.type == "cuda" for row in mesh.devices for d in row)
+          and mesh.size == 4, "[mesh] a slot is not on a card")
+    return mesh, make_local_mesh(2, 2, device="cpu")
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 21: the LM stack on a 2 x 2 ``("data", "model")`` mesh (see
+    the module docstring); the slots on the first four cards where the
+    machine has four, else all on ``cuda:0`` (said). Fails at the first
+    check that does not hold. Returns the kernels line's entries for the
+    mesh train step's kernels at a data group's shapes."""
+    from repro_torch.data.corpus import CorpusConfig
+    from repro_torch.distributed import sharding as tsh
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import (
+        attention_bwd_ref, attention_ref, xent_bwd_ref, xent_ref,
+    )
+    from repro_torch.kernels.xent import streaming_xent
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models import stepfn
+    from repro_torch.models.model import model_template
+    from repro_torch.models.params import leaves
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    kfa = importlib.import_module("repro_torch.kernels.flash_attention")
+    kxent = importlib.import_module("repro_torch.kernels.xent")
+
+    GRANITE, B, S, STEPS = "granite-moe-3b-a800m", 4, 256, 3
+    mesh, cpu_mesh = card_meshes()
+    rng = np.random.default_rng(21)
+    vocab = 49155
+    toks = rng.integers(0, vocab, (B, S + 1))
+    targets = toks[:, 1:].copy()
+    targets[0, :40] = -1                   # data group 0 counts fewer
+    batch = {"tokens": torch.from_numpy(toks[:, :S]).cuda(),
+             "targets": torch.from_numpy(targets).cuda()}
+
+    def mesh_state(n_layers, seed):
+        cfg, ps, n = card_model(GRANITE, seed, master=True,
+                                n_layers=n_layers)
+        specs = tsh.param_pspecs(model_template(cfg), mesh)
+        sp = tsh.put(ps, specs, mesh)
+        del ps
+        opt = AdamW()
+        z = torch.zeros((), dtype=torch.int32, device=mesh.lead)
+        return cfg, specs, n, opt, {"params": sp, "opt_state": opt.init(sp),
+                                    "step": z}
+
+    def launches():
+        return (flash_attention.launches, flash_attention.bwd_launches,
+                streaming_xent.launches, streaming_xent.bwd_launches)
+
+    def zero():
+        flash_attention.launches = flash_attention.bwd_launches = 0
+        streaming_xent.launches = streaming_xent.bwd_launches = 0
+
+    island = []
+    local = mlayers._moe_local
+    mlayers._moe_local = lambda *a: island.append(1) or local(*a)
+    try:
+        # (a) three train steps at 4 layers, twice
+        t_a = time.perf_counter()
+        runs = []
+        for rep in range(2):
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg, specs, n_par, opt, st = mesh_state(4, 21)
+            if rep == 0:
+                share = [0] * 4
+                for x, s in zip(leaves(st["params"], torch.is_tensor),
+                                leaves(specs, tsh.is_spec)):
+                    k = math.prod(tsh._axis_size(mesh, e) for e in s if e)
+                    for i in range(4):
+                        share[i] += math.prod(x.shape) * 4 // k
+                held = [sum(leaf.pieces[i][j].numel() * 4 for leaf in
+                            leaves(st["params"], torch.is_tensor))
+                        for i, j in mesh.slots()]
+                check(held == share and all(
+                    leaf.pieces[i][j].device == mesh.devices[i][j]
+                    for leaf in leaves(st["params"], torch.is_tensor)
+                    for i, j in mesh.slots()),
+                      f"[mesh a] slot bytes {held} differ from the specs' "
+                      f"share {share}, or a piece is off its slot")
+                say(f"[mesh a] {GRANITE} at published widths, 4 layers, "
+                    f"{n_par / 1e6:.1f} M float32 parameters "
+                    f"({n_par * 4 / 1e9:.2f} GB): bytes each slot holds at "
+                    f"rest {held} (params; the moments hold as much again "
+                    f"each), equal to the specs' share")
+            step = stepfn.make_train_step(
+                cfg, opt, mesh=mesh, moe_groups=mesh.size,
+                constrain=tsh.make_constrain(mesh))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            island.clear()
+            mets, secs = [], []
+            for s_ in range(STEPS):
+                t0 = time.perf_counter()
+                if rep == 0 and s_ == STEPS - 1:
+                    res = []
+                    wall, events = kernel_events(
+                        lambda: res.append(step(st, batch)), cpu=False)
+                    n_k = sum(len(v) for v in events.values())
+                    busy = sum(sum(v) for v in events.values())
+                    st, m = res[0]
+                else:
+                    st, m = step(st, batch)
+                mets.append(m)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            if rep == 0:
+                n_launch, n_island = launches(), len(island)
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                check(all(n > 0 for n in n_launch),
+                      f"[mesh a] a kernel of the mesh step was not launched "
+                      f"(flash fwd / bwd, xent fwd / bwd: {n_launch})")
+            runs.append(([{k: v.item() for k, v in m.items()} for m in mets],
+                         [t.clone() for leaf in leaves(st["params"],
+                                                       torch.is_tensor)
+                          for t in leaf.flat()]))
+            del st, step
+        check(runs[0][0] == runs[1][0] and all(
+            torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])),
+              "[mesh a] two card runs of the mesh train step differ")
+        m0 = runs[0][0]
+        check(all(math.isfinite(v) for m in m0 for v in m.values()),
+              "[mesh a] a metric is not finite")
+        ms_step = 1e3 * min(secs[1:2] or secs)
+        say(f"[mesh a] 3 steps x {B} x {S} tokens on the 2 x 2 mesh (island "
+            f"each step: moe_groups = {mesh.size}): loss "
+            f"{[round(m['loss'], 5) for m in m0]}, aux "
+            f"{[round(m['aux'], 5) for m in m0]}, grad norm "
+            f"{[round(m['grad_norm'], 4) for m in m0]}; two runs bit-equal; "
+            f"ms per step {[round(1e3 * t, 1) for t in secs]} (step 3 "
+            f"profiled); launches per step: flash fwd / bwd "
+            f"{n_launch[0] // STEPS} / {n_launch[1] // STEPS}, xent fwd / "
+            f"bwd {n_launch[2] // STEPS} / {n_launch[3] // STEPS}, island "
+            f"slots {n_island // STEPS}; peak {peak:.2f} GB; {card}")
+        say(f"[mesh a] (a) took {time.perf_counter() - t_a:.1f} s")
+        if n_k:
+            say(f"[mesh a] profiled step: {n_k} kernels, device busy "
+                f"{busy / 1e3:.1f} of {wall * 1e3:.1f} ms wall "
+                f"({(1 - busy / 1e6 / wall) * 100:.1f}% idle, profiler on)")
+            for name, ts_ in sorted(events.items(),
+                                    key=lambda kv: -sum(kv[1]))[:6]:
+                say(f"[mesh a]   {sum(ts_) / 1e3:7.2f} ms in {len(ts_)} "
+                    f"launches  {name[:90]}")
+        else:
+            say("[mesh a] kernels per step: not measured (no device events)")
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (a') and (b') 2 layers in float32, card against the CPU, and
+        # the planted faults each gate must reject
+        mesh_gates(card, mesh, cpu_mesh, 22)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        P = 512
+        ptoks = torch.from_numpy(rng.integers(0, vocab, (B, P))).cuda()
+        # (b) prefill 4 x 512 + 8 greedy decode steps at 4 layers, twice
+        t_b = time.perf_counter()
+        cfg4, _, _, _, st = mesh_state(4, 21)
+        pre = stepfn.make_prefill_step(cfg4, mesh=mesh, moe_groups=mesh.size)
+        dec = stepfn.make_decode_step(cfg4, mesh=mesh)
+        reps = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = pre(st["params"], {"tokens": ptoks})
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            lgs, t0 = [lg], time.perf_counter()
+            for n in range(8):
+                lg, cache = dec(st["params"], cache,
+                                lgs[-1].argmax(-1)[:, None],
+                                torch.full((B,), P + n, device="cuda"))
+                lgs.append(lg)
+            torch.cuda.synchronize()
+            reps.append((lgs, t_pre, (time.perf_counter() - t0) / 8))
+        check(all(torch.equal(a, b) for a, b in zip(reps[0][0], reps[1][0]))
+              and all(bool(torch.isfinite(x).all()) for x in reps[0][0]),
+              "[mesh b] prefill / decode on the mesh does not repeat")
+        say(f"[mesh b] 4 layers, prefill {B} x {P} on the island + 8 greedy "
+            f"decode steps (global dispatch), twice, bit-equal: prefill "
+            f"{reps[1][1] * 1e3:.1f} ms, decode {reps[1][2] * 1e3:.2f} ms a "
+            f"token ((b) took {time.perf_counter() - t_b:.1f} s); {card}")
+        del st, cache, reps, lgs
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        mlayers._moe_local = local
+
+    # (c) Trainer on the mesh: 4 steps, checkpoint at 2, crash and restore
+    t_c = time.perf_counter()
+    from repro_torch.configs import get_config, reduced
+    cfg_r = reduced(get_config(GRANITE))
+    root = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    corpus = CorpusConfig(vocab_size=cfg_r.vocab_size, seq_len=64,
+                          global_batch=4)
+
+    def trainer(sub, m):
+        tc = TrainConfig(steps=4, lr=1e-3, warmup=1, ckpt_dir=str(root / sub),
+                         ckpt_every=2, log_every=1, seed=3,
+                         ckpt_background=False)
+        return Trainer(cfg_r, corpus, tc, mesh=m, log=lambda *a: None,
+                       device="cuda")
+
+    try:
+        straight = ckpt._flatten(trainer("a", mesh).run())
+        try:
+            trainer("b", mesh).run(fail_at_step=3)
+            fail("[mesh c] the injected crash did not happen")
+        except RuntimeError as exc:
+            check("injected" in str(exc), f"[mesh c] {exc}")
+        resumed = ckpt._flatten(trainer("b", mesh).run())
+        one, _ = ckpt.restore(str(root / "a"),
+                              trainer("a", None).state_template(),
+                              device="cuda")
+        check(straight.keys() == resumed.keys() and all(
+            np.array_equal(straight[k], resumed[k]) for k in straight),
+              "[mesh c] crash + restore differs from the straight run")
+        check(all(np.array_equal(v, straight[k])
+                  for k, v in ckpt._flatten(one).items()),
+              "[mesh c] the mesh checkpoint does not restore on one device")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"[mesh c] Trainer on the mesh ({GRANITE} reduced, 4 x 64 tokens, "
+        f"moe_groups = {mesh.size}): 4 steps, checkpoint at 2, crash at 3 and "
+        f"restore: equal to the straight run bit for bit; the mesh "
+        f"checkpoint restores on one card, equal "
+        f"({time.perf_counter() - t_c:.1f} s)")
+
+    # the mesh step's kernels at a data group's shapes, against their plain
+    # versions (these launches are not the main path's)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    rows, Hq, Hkv, D = B // 2, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf16 = torch.bfloat16
+    q = torch.randn((rows, S, Hq, D), generator=gen, device="cuda").to(bf16)
+    k = torch.randn((rows, S, Hkv, D), generator=gen, device="cuda").to(bf16)
+    v = torch.randn((rows, S, Hkv, D), generator=gen, device="cuda").to(bf16)
+    tr = lambda x: x.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shape = f"({rows}, {S}, {Hq}/{Hkv}, {D}) bf16 causal"
+    fa = kernel_times(
+        f"flash_attention at the mesh step's {shape}",
+        lambda: kfa._fwd_kernel(q, k, v, True, 0, False)[0],
+        lambda: tr(attention_ref(tr(q), tr(k), tr(v), causal=True)),
+        lambda: sdpa(tr(q), tr(k), tr(v), is_causal=True, enable_gqa=True),
+        flash_bound_ms(rows, Hq, Hkv, S, S, D, 2, True, 0), card, 50,
+        2e-2, 2e-2)
+    o, lse = kfa._fwd_kernel(q, k, v, True, 0, True)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(bf16)
+    cat = lambda ts: torch.cat([t.float().reshape(-1) for t in ts])
+    qr, kr, vr = (tr(x).detach().requires_grad_(True) for x in (q, k, v))
+    lib_o = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
+    fb = kernel_times(
+        f"flash_attention backward at the mesh step's {shape}",
+        lambda: cat(kfa._bwd_kernel(q, k, v, o, lse, do, True, 0)),
+        lambda: cat(tr(t) for t in attention_bwd_ref(
+            tr(q), tr(k), tr(v), tr(o), tr(do), causal=True)),
+        lambda: torch.autograd.grad(lib_o, (qr, kr, vr), tr(do),
+                                    retain_graph=True),
+        flash_bwd_bound_ms(rows, Hq, Hkv, S, S, D, 2, True, 0), card, 50,
+        2e-2, 2e-2)
+    N = rows * S
+    x = torch.randn((N, cfg.vocab_size), generator=gen, device="cuda") * 2
+    t = torch.randint(0, cfg.vocab_size, (N,), generator=gen, device="cuda")
+    t32 = t.to(torch.int32)
+    xl = kernel_times(
+        f"streaming_xent at the mesh step's ({N}, {cfg.vocab_size}) f32",
+        lambda: kxent._fwd_kernel(x, t32)[0], lambda: xent_ref(x, t),
+        lambda: torch.nn.functional.cross_entropy(x, t, reduction="none"),
+        xent_bound_ms(N, cfg.vocab_size, 4, False), card, 50, 2e-4, 1e-5)
+    lse_x = kxent._fwd_kernel(x, t32)[1]
+    g = torch.rand((N,), generator=gen, device="cuda")
+    xr = x.detach().requires_grad_(True)
+    lib_l = torch.nn.functional.cross_entropy(xr, t, reduction="none")
+    xb = kernel_times(
+        f"streaming_xent backward at the mesh step's ({N}, "
+        f"{cfg.vocab_size}) f32",
+        lambda: kxent._bwd_kernel(x, t32, lse_x, g),
+        lambda: xent_bwd_ref(x, t, lse_x, g),
+        lambda: torch.autograd.grad(lib_l, xr, g, retain_graph=True),
+        xent_bound_ms(N, cfg.vocab_size, 4, True), card, 50, 1e-6, 1e-4)
+    return {
+        "flash_attention_mesh": dict(launches=n_launch[0], **fa),
+        "flash_attention_bwd_mesh": dict(launches=n_launch[1], **fb),
+        "streaming_xent_mesh": dict(launches=n_launch[2], **xl),
+        "streaming_xent_bwd_mesh": dict(launches=n_launch[3], **xb),
+    }
+
+
+def mesh_kernels(res: dict) -> list:
+    """Phase 21's entries of the kernels line."""
+    src = {"flash_attention_mesh": ("flash_attention.cu", "flash_attention"),
+           "flash_attention_bwd_mesh": ("flash_attention_bwd.cu",
+                                        "flash_attention"),
+           "streaming_xent_mesh": ("xent.cu", "xent"),
+           "streaming_xent_bwd_mesh": ("xent.cu", "xent")}
+    line = {"flash_attention": 84, "xent": 53}
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{cu}",
+             "replaces": f"src/repro/kernels/{py}.py:{line[py]}", **res[name]}
+            for name, (cu, py) in src.items()]
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
@@ -2861,7 +3487,8 @@ def main():
         return
     if len(sys.argv) == 2 and sys.argv[1] in ("--phase17", "--phase18",
                                                "--phase19", "--phase20",
-                                               "--lm-depth"):
+                                               "--phase21", "--lm-depth",
+                                               "--mesh-gates"):
         sys.path.insert(0, str(ROOT / "src"))
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
@@ -2877,6 +3504,25 @@ def main():
             t0 = time.perf_counter()
             say(json.dumps(sharded_phase(card)))
             say(f"[phase 20] done in {time.perf_counter() - t0:.1f} s")
+            return
+        if sys.argv[1] == "--mesh-gates":
+            from repro_torch.kernels import _build
+            _build.build(("flash_attention", "flash_attention_bwd", "xent"))
+            mesh, cpu_mesh = card_meshes()
+            for seed in (22, 23, 24):
+                mesh_gates(card, mesh, cpu_mesh, seed)
+                gc.collect()
+                torch.cuda.empty_cache()
+            return
+        if sys.argv[1] == "--phase21":
+            from repro_torch.kernels import _build
+            t0 = time.perf_counter()
+            _build.build(("flash_attention", "flash_attention_bwd", "xent"))
+            say(f"[build] flash_attention, flash_attention_bwd, xent "
+                f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            say(json.dumps({"kernels": mesh_kernels(mesh_phase(card))}))
+            say(f"[phase 21] done in {time.perf_counter() - t0:.1f} s")
             return
         if sys.argv[1] == "--phase19":
             from repro_torch.kernels import _build
@@ -4866,6 +5512,14 @@ def main():
     torch.cuda.empty_cache()
     sh20 = sharded_phase(card)
 
+    # ---- phase 21: the LM stack on a mesh ---------------------------------
+    say(f"[phase 21] starts at {time.perf_counter() - t_smoke:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    mesh21 = mesh_phase(card)
+    say(f"[phase 21] done in {time.perf_counter() - t21:.1f} s")
+
     # ds_estep: the public call at the stream's refresh shape (the task
     # route's warp mode), and the task kernel at the offline EM's C4 shape
     # (block mode, the table in shared memory); entropy_scores: the narrow
@@ -5014,7 +5668,7 @@ def main():
         "name": "entropy_scores_sharded", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/entropy.cu",
         "replaces": "src/repro/kernels/uncertainty.py:55",
-        **sh20["entropy"]}]}))
+        **sh20["entropy"]}] + mesh_kernels(mesh21)}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind,
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,8 @@
-"""Architecture description (copy of ``src/repro/configs/base.py``).
+"""Architecture and workload-shape descriptions (copy of
+``src/repro/configs/base.py``).
 
-A ``ModelConfig`` is pure data. ``block_pattern`` is the repeating unit of
+A ``ModelConfig`` is pure data; a workload cell is a ``(ModelConfig,
+ShapeConfig)`` pair, :func:`cell_supported` says whether it runs. ``block_pattern`` is the repeating unit of
 the layer stack, tiled (and truncated) to ``n_layers``. Block kinds:
 ``attn`` (self-attention + MLP, full or sliding window), ``xattn``
 (attention + cross-attention), ``moe`` (attention + mixture of experts),
@@ -49,6 +51,17 @@ class ModelConfig:
     norm: str = "rmsnorm"
 
     @property
+    def subquadratic(self) -> bool:
+        """True if the context cost is sub-quadratic (recurrent blocks or a
+        sliding window without full attention): ``long_500k`` runs."""
+        blocks = self.blocks()
+        recurrent = any(b in ("mlstm", "slstm", "rglru") for b in blocks)
+        swa = self.window > 0
+        full_attn = any(b in ("attn", "xattn", "moe")
+                        for b in blocks) and self.window == 0
+        return (recurrent or swa) and not (full_attn and not swa)
+
+    @property
     def is_encoder_decoder(self) -> bool:
         return self.n_encoder_layers > 0
 
@@ -86,6 +99,34 @@ class ModelConfig:
         """The sLSTM block's GEGLU width: ~8/3 of d_model, a multiple of
         64 (2048 for xlstm-125m)."""
         return max(64, int(self.d_model * 8 / 3) // 64 * 64)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
+    """(supported, reason). ``long_500k`` needs sub-quadratic context
+    handling."""
+    if shape.name == "long_500k":
+        if cfg.is_encoder_decoder:
+            return False, "enc-dec: 500k decoder context out of scope"
+        if not cfg.subquadratic:
+            return False, ("pure full-attention arch: 500k dense KV out of "
+                           "scope")
+    return True, ""
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

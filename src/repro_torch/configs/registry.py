@@ -4,7 +4,9 @@
 copied here as data. The port's model runs all ten (see
 :mod:`repro_torch.models.model`).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (
+    SHAPES, ModelConfig, ShapeConfig, cell_supported, reduced,
+)
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _rgemma
 
 _OTHERS = (
@@ -44,10 +46,27 @@ _OTHERS = (
                 norm="layernorm"),
 )
 
-ARCHS = {c.name: c for c in (_rgemma,) + _OTHERS}
+# the reference's registry order (all_cells lists the cells in it)
+ARCHS = {c.name: c for c in _OTHERS[:8] + (_rgemma,) + _OTHERS[8:]}
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def all_cells():
+    """Every (arch, shape) cell with its supported flag and reason."""
+    out = []
+    for a in ARCHS.values():
+        for s in SHAPES.values():
+            ok, why = cell_supported(a, s)
+            out.append((a, s, ok, why))
+    return out
+
+
+__all__ = [
+    "ARCHS", "SHAPES", "ModelConfig", "ShapeConfig",
+    "get_config", "all_cells", "cell_supported", "reduced",
+]

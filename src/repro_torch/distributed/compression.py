@@ -3,8 +3,7 @@ symmetric per-tensor int8 quantize/dequantize, with error feedback.
 
 Applied as the train step's ``grad_transform`` hook it models a compressed
 gradient exchange: the dequantized values are what the optimizer sees.
-The rest of the reference's ``distributed/`` (sharding rules, elastic host
-eviction) has no meaning on one card and is not ported.
+It runs on one device's gradient tree (a mesh's train step takes none).
 """
 from __future__ import annotations
 

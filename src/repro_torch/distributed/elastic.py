@@ -11,8 +11,9 @@ duplicate fetches censor observed latencies exactly as in the crowd setting.
 
 The port's own copy of ``src/repro/distributed/elastic.py``: the host-side
 monitor and the degree rule, with no device work, so it takes no
-``device`` argument. The mesh rebuild it feeds is the multi-device path
-(ROADMAP A13b).
+``device`` argument. The rebuild it feeds is a new
+``launch.mesh.make_local_mesh`` and a checkpoint restored with the new
+mesh's ``shardings`` (:mod:`repro_torch.training.checkpoint`).
 """
 from __future__ import annotations
 

@@ -69,6 +69,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_cache.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -437,13 +438,8 @@ constexpr int smem_mma() {
 template <int DPT>
 cudaError_t launch(const Args& a, int BH, cudaStream_t st) {
   constexpr int smem = smem_bytes<DPT>();
-  static bool attr_set = false;            // once per instance and process
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<DPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  const cudaError_t err = launch_cache::allow_smem(flash_fwd<DPT>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)BH, (unsigned)((a.Sq + kBQ - 1) / kBQ));
   flash_fwd<DPT><<<grid, kThreads, smem, st>>>(a);
   return cudaSuccess;
@@ -452,14 +448,8 @@ cudaError_t launch(const Args& a, int BH, cudaStream_t st) {
 template <int DP>
 cudaError_t launch_mma(const Args& a, int BH, int vec, cudaStream_t st) {
   constexpr int smem = smem_mma<DP>();
-  static bool attr_set = false;            // once per instance and process
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  const cudaError_t err = launch_cache::allow_smem(flash_fwd_mma<DP>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)BH, (unsigned)((a.Sq + kBQ - 1) / kBQ));
   flash_fwd_mma<DP><<<grid, kMmaThreads, smem, st>>>(a, vec);
   return cudaSuccess;

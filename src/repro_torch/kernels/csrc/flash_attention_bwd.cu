@@ -79,6 +79,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_cache.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -814,17 +815,10 @@ unsigned delta_blocks(const Args& a, int B) {
 template <int DPT>
 cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   constexpr int sq = smem_dq<DPT>(), sk = smem_dkdv<DPT>();
-  static bool attr_set = false;         // once per instance and process
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq<DPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, sq);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_bwd_dkdv<DPT>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 sk);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  cudaError_t err = launch_cache::allow_smem(flash_bwd_dq<DPT>, sq);
+  if (err == cudaSuccess)
+    err = launch_cache::allow_smem(flash_bwd_dkdv<DPT>, sk);
+  if (err != cudaSuccess) return err;
   flash_bwd_delta<float><<<delta_blocks(a, B), kThreads, 0, st>>>(a, B);
   const dim3 gq((unsigned)(B * a.Hq), (unsigned)((a.Sq + kBQ - 1) / kBQ));
   flash_bwd_dq<DPT><<<gq, kThreads, sq, st>>>(a);
@@ -836,18 +830,10 @@ cudaError_t launch(const Args& a, int B, cudaStream_t st) {
 template <int DP>
 cudaError_t launch_mma(const Args& a, int B, cudaStream_t st) {
   constexpr int sq = smem_dq_mma<DP>(), sk = smem_dkdv_mma<DP>();
-  static bool attr_set = false;         // once per instance and process
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_mma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        sq);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_bwd_dkdv_mma<DP>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 sk);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  cudaError_t err = launch_cache::allow_smem(flash_bwd_dq_mma<DP>, sq);
+  if (err == cudaSuccess)
+    err = launch_cache::allow_smem(flash_bwd_dkdv_mma<DP>, sk);
+  if (err != cudaSuccess) return err;
   flash_bwd_delta<bf16><<<delta_blocks(a, B), kThreads, 0, st>>>(a, B);
   const dim3 gq((unsigned)(B * a.Hq), (unsigned)((a.Sq + kT - 1) / kT));
   flash_bwd_dq_mma<DP><<<gq, kMmaThreads, sq, st>>>(a);

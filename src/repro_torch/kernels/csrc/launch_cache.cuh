@@ -89,4 +89,29 @@ cudaError_t blocks_per_sm(Kernel fn, int dev, const Device& d, int threads,
   return cudaSuccess;
 }
 
+// Raise `fn`'s dynamic shared memory limit to `smem` bytes on the current
+// device, the first time a launch there asks for it. The attribute is per
+// device: a flag kept once per process would leave every other card at its
+// 48 KB default, and a launch there would fail with an invalid value.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel fn, int smem) {
+  static Entry table[kEntries];
+  static int next = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(fn);
+  std::lock_guard<std::mutex> guard(lock());
+  for (int i = 0; i < kEntries; ++i) {
+    const Entry& e = table[i];
+    if (e.fn == key && e.dev == dev && e.smem >= smem) return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  table[next] = Entry{key, dev, 0, smem, 0};
+  next = (next + 1) % kEntries;
+  return cudaSuccess;
+}
+
 }  // namespace launch_cache

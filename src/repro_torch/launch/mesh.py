@@ -1,19 +1,21 @@
-"""The device mesh of the sharded labeling service (port of
-``src/repro/launch/mesh.py``'s stream part).
+"""Device meshes (port of ``src/repro/launch/mesh.py``).
 
-PyTorch has no ``shard_map``: the port runs a single controller over an
-ordered list of devices, one per shard group, and :class:`StreamMesh`
-carries that list and the two collectives the tick needs, each in canonical
-group order. Functions, not module constants: importing this module touches
-no device.
+PyTorch has no GSPMD and no ``shard_map``: the port runs a single
+controller over an ordered grid of device slots. :class:`StreamMesh` is
+the sharded labeling service's list of shard groups, with the two
+collectives its tick needs; :class:`LMMesh` is the LM stack's
+``("data", "model")`` grid (:func:`make_local_mesh`), with the collectives
+its sharded train, prefill and decode steps need. Every collective runs in
+slot order and lands on a stated device, so a run repeats bit for bit.
+Functions, not module constants: importing this module touches no device.
 
-Left for the LM stack on a mesh (ROADMAP A13b): ``make_local_mesh`` and
-``make_production_mesh`` (the reference's 16x16 and 2x16x16 TPU pod meshes;
-the TPU pod layout has no counterpart on one host's cards).
+``make_production_mesh`` (the reference's 16x16 and 2x16x16 TPU pod
+meshes) has no counterpart on one host's cards and raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -53,6 +55,107 @@ class StreamMesh:
         """``x`` on every group's device (the same tensor where the device
         is the same)."""
         return [x.to(d) for d in self.devices]
+
+
+@dataclasses.dataclass(frozen=True)
+class LMMesh:
+    """An ``n_data x n_model`` grid of device slots: slot ``(i, j)`` on
+    ``devices[i][j]`` (a card may repeat). ``axis_names`` and ``shape`` are
+    the two attributes the sharding rules read, as on a ``jax`` mesh.
+
+    The collectives take the tensors of the slots along a named axis (or
+    axes), in slot order, and put the result on ``device``."""
+    devices: tuple
+    axis_names = ("data", "model")
+
+    @property
+    def shape(self) -> dict:
+        return {"data": len(self.devices), "model": len(self.devices[0])}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+    @property
+    def lead(self) -> torch.device:
+        """Slot (0, 0)'s device, where replicated results land."""
+        return self.devices[0][0]
+
+    def slots(self):
+        """Every slot ``(i, j)`` in slot order (data-major)."""
+        return [(i, j) for i in range(self.shape["data"])
+                for j in range(self.shape["model"])]
+
+    def _count(self, axes, xs):
+        n = math.prod(self.shape[a] for a in axes)
+        if len(xs) != n:
+            raise ValueError(f"a collective over {axes} takes {n} tensors, "
+                             f"got {len(xs)}")
+
+    def all_gather(self, xs, axis: str, dim: int, device):
+        """``all_gather(tiled=True)``: the tensors of the slots along
+        ``axis`` concatenated along ``dim``, on ``device``."""
+        self._count((axis,), xs)
+        return torch.cat([x.to(device) for x in xs], dim)
+
+    def psum(self, xs, axis: str, device):
+        """``psum``: the tensors of the slots along ``axis`` added in slot
+        order, on ``device``."""
+        self._count((axis,), xs)
+        return _sum_in_order(xs, device)
+
+    def pmean(self, xs, axes, device):
+        """``pmean`` over ``axes`` (a name or a tuple of names): the slots'
+        tensors added in slot order, then divided by their number."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        self._count(axes, xs)
+        return _sum_in_order(xs, device) / len(xs)
+
+
+def _sum_in_order(xs, device):
+    out = xs[0].to(device)
+    for x in xs[1:]:
+        out = out + x.to(device)
+    return out
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's 16x16 (256-chip) and 2x16x16 (512-chip) TPU pod
+    meshes have no counterpart on one host's cards: raises."""
+    raise NotImplementedError(
+        "make_production_mesh: the reference's 16x16 and 2x16x16 meshes are "
+        "TPU pod layouts (256 / 512 chips joined by ICI); the port runs on "
+        "one host's cards: use make_local_mesh")
+
+
+def make_local_mesh(n_data: int = 1, n_model: int = 1, device="cuda",
+                    devices=None) -> LMMesh:
+    """The ``("data", "model")`` mesh of ``n_data x n_model`` slots.
+
+    ``devices`` (``n_data * n_model`` devices in slot order, data-major; a
+    card may repeat) wins over ``device``. Otherwise a CUDA ``device``
+    takes the cards ``cuda:0 ..`` (one slot: ``device`` itself) and raises
+    when fewer are visible; ``device="cpu"`` puts every slot on the CPU
+    (the reference forces host devices with ``XLA_FLAGS`` for that).
+    Nothing falls back to fewer slots."""
+    if n_data < 1 or n_model < 1:
+        raise ValueError(f"make_local_mesh: n_data and n_model must be >= "
+                         f"1, got {n_data}, {n_model}")
+    n = n_data * n_model
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if len(devs) != n:
+            raise ValueError(f"make_local_mesh: devices= lists {len(devs)} "
+                             f"device(s) for {n_data} x {n_model} slots")
+    else:
+        dev = resolve_device(device)
+        if n == 1 or dev.type == "cpu":
+            devs = [dev] * n
+        else:
+            _require_devices("make_local_mesh", n)
+            devs = [torch.device("cuda", i) for i in range(n)]
+    return LMMesh(tuple(tuple(devs[i * n_model:(i + 1) * n_model])
+                        for i in range(n_data)))
 
 
 def _require_devices(fn: str, n: int):

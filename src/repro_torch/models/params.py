@@ -5,8 +5,12 @@ tuples. :func:`init_params` maps the template to tensors drawn from a
 ``torch.Generator``, from the reference's distributions (its numbers come
 from ``jax.random`` and differ); :func:`params_from_numpy` carries the
 reference's own parameter tree across, as numpy arrays, so that both
-packages compute the same function in the tests. Leaves are visited in
-the reference's flatten order: dict keys sorted, tuples in order.
+packages compute the same function in the tests; :func:`logical_axes`
+maps the template to the logical-axis tuples that
+:mod:`repro_torch.distributed.sharding` lays out over a mesh, and
+:func:`abstract_params` to ``meta`` tensors (shapes and dtypes, nothing
+allocated). Leaves are visited in the reference's flatten order: dict
+keys sorted, tuples in order.
 """
 from __future__ import annotations
 
@@ -27,6 +31,10 @@ class PSpec(NamedTuple):
     def stacked(self, n: int) -> "PSpec":
         """Add a leading ``layers`` axis (the stacked-group layout)."""
         return PSpec((n,) + self.shape, ("layers",) + self.axes, self.init)
+
+
+def is_pspec(x) -> bool:
+    return isinstance(x, PSpec)
 
 
 def tree_map(fn, tree, is_leaf=lambda x: isinstance(x, PSpec)):
@@ -56,6 +64,19 @@ def with_leaves(tree, values):
 
 def tree_stack_template(template, n: int):
     return tree_map(lambda p: p.stacked(n), template)
+
+
+def logical_axes(template):
+    """The template with each leaf replaced by its logical-axis tuple."""
+    return tree_map(lambda p: p.axes, template)
+
+
+def abstract_params(template, dtype=torch.float32):
+    """The template as ``meta`` tensors of ``dtype``: the shapes and dtypes
+    of the parameters, nothing drawn or allocated (the reference's
+    ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=dtype,
+                                          device="meta"), template)
 
 
 def count_params(template) -> int:

@@ -264,19 +264,23 @@ def slstm_init_state(cfg, batch, dtype=torch.float32, *, device):
             "m": torch.full((batch, cfg.d_model), -1e30, **f32)}
 
 
-def apply_slstm(p, x, state, cfg):
+def apply_slstm(p, x, state, cfg, cons=None, local=False):
     """The sLSTM block on (B, S, d) x from ``state``
     (:func:`slstm_init_state`): the gated recurrence with head-wise
     recurrent weights, step by step in float32, then the group norm and the
-    GEGLU projection in x's dtype. The reference's ``cons`` / ``local``
-    arguments gather tensor-parallel shards once per layer; on one card
-    there is nothing to gather, so they are left out. Returns (y, new
+    GEGLU projection in x's dtype. With ``local`` (the reference's
+    ``rnn_local``) the gate pre-activations pass through the
+    activation-sharding hook ``cons`` once per layer, replicated over
+    ``model`` (the port's data groups hold them whole). Returns (y, new
     state)."""
     d, H = cfg.d_model, cfg.n_heads
     dh = d // H
     B, S, _ = x.shape
     with full_fp32():
-        gx = (x @ p["w_gates"] + p["b_gates"]).to(torch.float32)
+        gx = x @ p["w_gates"] + p["b_gates"]
+        if local and cons is not None:
+            gx = cons(gx, ("batch", "seq", None))
+        gx = gx.to(torch.float32)
         r = p["r_gates"].to(torch.float32)
         c, n, h, m = state["c"], state["n"], state["h"], state["m"]
         hs = []

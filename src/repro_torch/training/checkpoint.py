@@ -7,9 +7,12 @@ reference's keys (dict keys and tuple indices joined by ``/``, e.g.
 ``params/groups/0/attn/wq``, ``opt_state/mu/embed``, ``step``), and a
 ``latest`` pointer written last by atomic rename, so a crash mid-write
 never corrupts the restore path. A checkpoint written by either package
-restores in the other. The reference's ``shardings`` argument (reshard
-onto the current mesh at restore) has no meaning on one card and is left
-out; ``restore`` places every leaf on ``device`` instead.
+restores in the other. A sharded state
+(:class:`~repro_torch.distributed.sharding.Sharded` leaves) is saved
+gathered, in the same format as one device's, so a checkpoint written on a
+mesh restores on one device and the other way round: ``restore``'s
+``shardings`` lays the restored leaves out over a mesh (the reference
+reshards onto the current mesh there too).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import Sharded
 
 
 def _paths(tree, prefix=()):
@@ -46,10 +50,16 @@ def _rebuild(tree, fn, prefix=()):
     return fn("/".join(prefix), tree)
 
 
+def _host(v):
+    if isinstance(v, Sharded):
+        v = v.full("cpu")
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
 def _flatten(tree):
-    """path -> numpy array for every leaf (tensors copied to the host)."""
-    return {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
-                else np.asarray(v)) for k, v in _paths(tree)}
+    """path -> numpy array for every leaf (tensors copied to the host, a
+    Sharded leaf gathered whole)."""
+    return {k: _host(v) for k, v in _paths(tree)}
 
 
 def save(ckpt_dir: str, step: int, state, *, background: bool = False):
@@ -91,12 +101,17 @@ def latest_step(ckpt_dir: str):
         return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, template, *, step: int = None, device="cuda"):
+def restore(ckpt_dir: str, template, *, step: int = None, shardings=None,
+            device="cuda"):
     """``(state, step)``: the checkpoint at ``step`` (default: the latest)
     in the structure of ``template`` (a tree whose leaves have ``.shape``,
     e.g. tensors on the ``meta`` device), every leaf a tensor on ``device``
-    with the file's dtype; ``(None, None)`` when there is none."""
+    with the file's dtype; ``(None, None)`` when there is none.
+    ``shardings`` (a tree of the template's structure whose leaves are
+    :class:`~repro_torch.distributed.sharding.NamedSharding` or None) lays
+    each leaf with a sharding out over its mesh instead."""
     dev = resolve_device(device)
+    layout = dict(_paths(shardings)) if shardings is not None else {}
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:
@@ -107,6 +122,8 @@ def restore(ckpt_dir: str, template, *, step: int = None, device="cuda"):
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"shape mismatch for {key}: {arr.shape} vs "
                                  f"{tuple(t.shape)}")
-            return torch.from_numpy(np.array(arr)).to(dev)
+            t = torch.from_numpy(np.array(arr))
+            s = layout.get(key)
+            return t.to(dev) if s is None else s.put(t)
         state = _rebuild(template, leaf)
     return state, step

@@ -1,16 +1,20 @@
-"""The fault-tolerant training loop on one device (port of
+"""The fault-tolerant training loop on one device or a mesh (port of
 ``src/repro/training/trainer.py``).
 
 Wires together the step function (:mod:`repro_torch.models.stepfn`), AdamW
 with the cosine schedule, atomic checkpoints (optionally written on a
 background thread), the straggler-mitigated prefetch loader and optional
-gradient compression. Parameters are drawn from a CPU ``torch.Generator``
-seeded with ``TrainConfig.seed``, so a seed gives the same model on every
-device. Left out: the mesh (one card; passing one raises) and the
-reference's host monitoring and elastic restart. One repair: the loader
-starts at the restored step, so a run that crashes, restores and continues
-sees the same batches as a run straight through (the reference's loader
-restarts at batch 0).
+gradient compression (one device). Parameters are drawn from a CPU
+``torch.Generator`` seeded with ``TrainConfig.seed``, so a seed gives the
+same model on every device. On a mesh (``mesh=``, an
+:class:`~repro_torch.launch.mesh.LMMesh`) the parameters and the
+optimizer state are laid out by the parameters' specs, the step's MoE
+groups are ``mesh.size`` (the reference's ``mesh.devices.size``: every
+slot, not the data groups), checkpoints hold the gathered state and a
+restore lays it out again. Left out: the reference's host monitoring and
+elastic restart. One repair: the loader starts at the restored step, so a
+run that crashes, restores and continues sees the same batches as a run
+straight through (the reference's loader restarts at batch 0).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 from repro_torch.data.corpus import CorpusConfig, PrefetchLoader
 from repro_torch.device import resolve_device
 from repro_torch.distributed.compression import compress_tree
+from repro_torch.distributed.sharding import named, param_pspecs, put
 from repro_torch.models.model import model_template
 from repro_torch.models.params import PSpec, init_params, tree_map
 from repro_torch.models.stepfn import make_train_step
@@ -47,27 +52,44 @@ class TrainConfig:
 
 class Trainer:
     def __init__(self, cfg, corpus: CorpusConfig, tc: TrainConfig, *,
-                 mesh=None, log=print, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("the port trains on one device: no "
-                                      "mesh")
+                 mesh=None, constrain=None, log=print, device="cuda"):
         self.cfg = cfg
         self.corpus = corpus
         self.tc = tc
+        self.mesh = mesh
         self.log = log
-        self.device = resolve_device(device)
+        self.device = mesh.lead if mesh is not None else \
+            resolve_device(device)
         self.opt = AdamW(lr=tc.lr, schedule=cosine_schedule(
             tc.lr, tc.warmup, tc.steps))
         self.step_fn = make_train_step(
             cfg, self.opt, microbatches=tc.microbatches, remat=tc.remat,
+            constrain=constrain, mesh=mesh,
+            moe_groups=mesh.size if mesh is not None else 1,
             grad_transform=compress_tree if tc.compression else None)
         self.metrics_log: list = []
 
     # ------------------------------------------------------------------
+    def shardings(self):
+        """The state's layout on the mesh (None on one device): parameters
+        and moments by the parameters' specs, the counters whole on the
+        lead device."""
+        if self.mesh is None:
+            return None
+        ps = named(param_pspecs(model_template(self.cfg), self.mesh),
+                   self.mesh)
+        return {"params": ps,
+                "opt_state": {"mu": ps, "nu": ps, "count": None},
+                "step": None}
+
     def init_state(self):
         params = init_params(model_template(self.cfg),
                              torch.Generator().manual_seed(self.tc.seed),
-                             device=self.device)
+                             device="cpu" if self.mesh is not None
+                             else self.device)
+        if self.mesh is not None:
+            params = put(params, param_pspecs(model_template(self.cfg),
+                                              self.mesh), self.mesh)
         return {"params": params, "opt_state": self.opt.init(params),
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=self.device)}
@@ -87,6 +109,7 @@ class Trainer:
         if self.tc.ckpt_dir:
             state, step = ckpt.restore(self.tc.ckpt_dir,
                                        self.state_template(),
+                                       shardings=self.shardings(),
                                        device=self.device)
             if state is not None:
                 self.log(f"[trainer] restored checkpoint at step {step}")

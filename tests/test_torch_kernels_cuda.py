@@ -674,6 +674,112 @@ def test_gradients_flow_through_the_kernels():
         assert t.grad.abs().max().item() > 0, name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_runs_on_every_card(dtype):
+    """The flash kernels, forward and backward, on every visible card (a
+    mesh puts data groups on cards other than ``cuda:0``): the float32
+    kernels opt into more than 48 KB of shared memory, an attribute each
+    device needs set; set once per process, a launch on the second card
+    failed with an invalid value. Needs two cards."""
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards; torch sees one")
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        q = _randn((2, 64, 8, 64), 3 * i, dev, dtype).requires_grad_(True)
+        k = _randn((2, 64, 2, 64), 3 * i + 1, dev, dtype
+                   ).requires_grad_(True)
+        v = _randn((2, 64, 2, 64), 3 * i + 2, dev, dtype
+                   ).requires_grad_(True)
+        o = flash_attention(q, k, v, causal=True)
+        do = torch.ones_like(o)
+        got = torch.autograd.grad(o, (q, k, v), do)
+        t = lambda x: x.detach().transpose(1, 2)
+        want_o = attention_ref(t(q), t(k), t(v), causal=True).transpose(1, 2)
+        want = attention_bwd_ref(t(q), t(k), t(v), t(o), t(do), causal=True)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        assert o.device == dev
+        assert torch.allclose(o.float(), want_o.float(), atol=tol, rtol=tol)
+        for a, b in zip(got, want):
+            assert torch.allclose(a.float(), b.transpose(1, 2).float(),
+                                  atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_mesh_train_step_float32_on_the_card_matches_the_cpu():
+    """Two float32 train steps of reduced granite-moe-3b-a800m (2 layers)
+    on a 2 x 2 mesh whose slots share the card (the MoE island, 4 x 16
+    tokens) against the same mesh on the CPU: every dispatch's routing
+    integers equal, the losses within 1e-5 relative, the parameters within
+    AdamW's 2 lr a step; the gradient itself after step 1 (one shared
+    state): the grad norm within 1e-4 relative and, per leaf, AdamW's first
+    moment (0.1 times the clipped gradient) within 1e-3 relative norm and
+    1e-6 of cosine 1; the kernels launched (``flash_attention`` and
+    ``streaming_xent``, forward and backward)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import sharding as tsh
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models import stepfn
+    from repro_torch.models.model import model_template
+    from repro_torch.models.params import init_params, leaves
+    from repro_torch.training.optimizer import AdamW
+
+    _card()
+    cfg = reduced(get_config("granite-moe-3b-a800m"))
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (4, 17), generator=g)
+    batch = {"tokens": toks[:, :16], "targets": toks[:, 1:].clone()}
+    batch["targets"][0, :5] = -1
+    inner = mlayers.moe_dispatch
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_local_mesh(2, 2, devices=[dev] * 4)
+        P = init_params(model_template(cfg), torch.Generator().manual_seed(6),
+                        device="cpu")
+        sp = tsh.put(P, tsh.param_pspecs(model_template(cfg), mesh), mesh)
+        opt = AdamW()
+        st = {"params": sp, "opt_state": opt.init(sp),
+              "step": torch.zeros((), dtype=torch.int32, device=mesh.lead)}
+        step = stepfn.make_train_step(cfg, opt, mesh=mesh, moe_groups=4,
+                                      compute_dtype=torch.float32)
+        rec, losses = [], []
+        mlayers.moe_dispatch = lambda *a: rec.append(inner(*a)) or rec[-1]
+        before = (flash_attention.launches, flash_attention.bwd_launches,
+                  streaming_xent.launches, streaming_xent.bwd_launches)
+        try:
+            for n in range(2):
+                st, m = step(st, {k: v.to(mesh.lead)
+                                  for k, v in batch.items()})
+                losses.append(m["loss"].item())
+                if n == 0:
+                    gnorm = m["grad_norm"].item()
+                    mu = tsh.gather(st["opt_state"]["mu"], "cpu")
+        finally:
+            mlayers.moe_dispatch = inner
+        after = (flash_attention.launches, flash_attention.bwd_launches,
+                 streaming_xent.launches, streaming_xent.bwd_launches)
+        out[dev] = (rec, losses, tsh.gather(st["params"], "cpu"),
+                    [a - b for a, b in zip(after, before)], gnorm, mu)
+    (rc, lc, pc, nc, gc_, mc), (rh, lh, ph, nh, gh, mh) = \
+        out["cuda"], out["cpu"]
+    assert abs(gc_ - gh) <= 1e-4 * gh, (gc_, gh)
+    for a, b in zip(leaves(mc, torch.is_tensor), leaves(mh, torch.is_tensor)):
+        a, b = a.double(), b.double()
+        assert (a - b).norm() <= 1e-3 * b.norm()
+        assert (a * b).sum() >= (1 - 1e-6) * a.norm() * b.norm()
+    assert all(n > 0 for n in nc) and not any(nh), (nc, nh)
+    assert len(rc) == len(rh) == 2 * 2 * 4 * 2   # steps x layers x slots x 2
+    for a, b in zip(rc, rh):
+        for k in ("topi", "dest", "keep"):
+            assert torch.equal(a[k].cpu(), b[k]), k
+    for a, b in zip(lc, lh):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for a, b in zip(leaves(pc, torch.is_tensor), leaves(ph, torch.is_tensor)):
+        assert (a - b).abs().max().item() <= 2 * 2 * AdamW().lr * 1.01
+
+
 def test_lm_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     """The LM path's entry points default to the card and raise without
     one; ``device="cpu"`` runs the plain versions. Runs everywhere (the

@@ -307,8 +307,15 @@ def test_attention_routes_by_mode_and_mask(monkeypatch):
                positions=(torch.arange(6) + 3).expand(2, 6))
     assert [c[0] for c in calls] == ["flash"] * tc.n_encoder_layers + [
         "direct", "flash"] * n_dec
-    with pytest.raises(ValueError, match="impl"):
-        tl.attention(q, kv, kv, impl="band")
+    # the reference's flash_xla and band routes (tiles checked) take the
+    # kernel's; an unknown route or a malformed tile raises
+    calls.clear()
+    tl.attention(q, kv, kv, impl="band:4")
+    tl.attention(q, kv, kv, impl="flash_xla:4:8")
+    assert [c[0] for c in calls] == ["flash", "flash"]
+    for bad in ("ring", "band:4:8", "flash_xla:0", "direct:4"):
+        with pytest.raises(ValueError, match="impl"):
+            tl.attention(q, kv, kv, impl=bad)
 
 
 # ------------------------------------------------------------ encode ----

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.launch import serve as launch_serve
+from repro_torch.obs import timing
 from repro_torch.scenarios import get_scenario
 from repro_torch.serving.server import LabelServer, ServeClient
 
@@ -40,7 +41,11 @@ def _run(coro):
 
 def test_conservation_under_concurrent_clients():
     """Every submission from racing keep-alive clients answers, and the
-    ledger balances with zero device drops (capacity throttling)."""
+    ledger balances with zero device drops (capacity throttling). The
+    timing registry is process-wide, so it starts empty here: a server run
+    by an earlier test file in the same process would add its ticks."""
+    timing.clear()
+
     async def main():
         srv = await _server().start()
         n_clients, per_client = 6, 5

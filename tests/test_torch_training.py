@@ -60,6 +60,7 @@ from repro_torch.models.params import (  # noqa: E402
 from repro_torch.training import checkpoint as tckpt  # noqa: E402
 from repro_torch.training.optimizer import AdamW, cosine_schedule  # noqa: E402
 from repro_torch.training.trainer import TrainConfig, Trainer  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 
 RG = "recurrentgemma-2b"
 ROOT = Path(__file__).resolve().parents[1]
@@ -469,9 +470,9 @@ def test_param_entry_points_default_to_the_card(monkeypatch, tmp_path):
         Trainer(tcfg, corpus, TrainConfig(steps=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tckpt.restore(str(tmp_path), {})
-    with pytest.raises(NotImplementedError):
-        Trainer(tcfg, corpus, TrainConfig(steps=1), mesh=object(),
-                device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(tcfg, corpus, TrainConfig(steps=1),
+                mesh=make_local_mesh(2, 1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tm.init_cache(tcfg, 2, 8)
 
