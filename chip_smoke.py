@@ -246,10 +246,26 @@ drives the port's main path on the card:
      decode from a stale cache outside it); (c)
      ``Trainer`` on the mesh (the reduced model), 4 steps with a
      checkpoint at 2: a crash and restore equal to the straight run, the
-     mesh checkpoint restored on one card; then the mesh step's
+     mesh checkpoint restored on one card; (c') the same ``Trainer`` with
+     ``compression=True``, twice, bit for bit, every compressed gradient
+     leaf (seen through a wrapping ``grad_transform``) gathered equal to
+     ``compress_tree`` of the gathered gradient, each element an integer
+     multiple of its leaf's scale within +-127; then the mesh step's
      ``flash_attention`` and ``streaming_xent`` kernels, forward and
      backward, at a data group's shapes against their plain versions,
-     timed beside their bounds and the library calls.
+     timed beside their bounds and the library calls;
+ 22. the dry-run: (a) ``python -m repro_torch.launch.dryrun --all --mesh
+     both`` in a subprocess (host only): every cell OK or SKIP, no error,
+     the skips ``cell_supported``'s, a record for each cell that ran; the
+     seconds and each train cell's argument bytes a device; (b)
+     ``build_cell`` for granite-moe-3b-a800m at published widths, 4
+     layers, train 4 x 256 on ``make_local_mesh(2, 2, devices=["cuda:0"]
+     * 4)``: a state laid out by the step's ``in_specs`` (each slot's
+     parameter and moment bytes the record's ``argument_bytes`` less the
+     batch's and the counters' share), one step equal bit for bit to a
+     step built directly by ``make_train_step`` with ``build_cell``'s
+     arguments on the same state and batch, its ``flash_attention`` and
+     ``streaming_xent`` launches forward and backward counted.
 
 It exits nonzero as soon as a phase fails, prints one ``{"kernels": ...}``
 JSON line, and ends with ``{"ok": true, "device": ...}``. It imports only
@@ -266,6 +282,7 @@ smoke, the build of ``ds_estep`` and ``entropy`` and phase 18; with
 phase 19; with ``--phase20`` only the build of ``ds_estep`` and
 ``entropy`` and phase 20; with ``--phase21`` only the build of
 ``flash_attention`` (both sources) and ``xent`` and phase 21; with
+``--phase22`` only that build and phase 22; with
 ``--mesh-gates`` only that build and phase 21's (a') and (b') for the
 seeds 22, 23 and 24 (the readings of the float32 gates, sound and
 planted, over seeds); with ``--lm-depth`` only the
@@ -281,6 +298,7 @@ import gc
 import importlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -3310,6 +3328,66 @@ def mesh_phase(card: str) -> dict:
         f"checkpoint restores on one card, equal "
         f"({time.perf_counter() - t_c:.1f} s)")
 
+    # (c') the same Trainer with compression: the gradient QDQ'd to int8
+    # with each whole leaf's scale, seen through a wrapping grad_transform
+    t_cc = time.perf_counter()
+    from repro_torch.distributed import compression as tcomp
+    from repro_torch.training import trainer as ttrainer
+    seen = []
+
+    def wrapped(grads):
+        before = tsh.gather(grads, mesh.lead)
+        out = tcomp.compress_tree(grads)
+        # the optimizer clips the gradient in place: keep a copy
+        seen.append((before, [x.clone() for x in leaves(
+            tsh.gather(out, mesh.lead), torch.is_tensor)]))
+        return out
+
+    def compressed_run():
+        tc = TrainConfig(steps=4, lr=1e-3, warmup=1, log_every=1, seed=3,
+                         compression=True)
+        t = Trainer(cfg_r, corpus, tc, mesh=mesh, log=lambda *a: None,
+                    device="cuda")
+        return ckpt._flatten(t.run())
+
+    inner = ttrainer.compress_tree
+    ttrainer.compress_tree = wrapped
+    try:
+        zero()
+        comp = [compressed_run()]
+        n_cc = launches()
+        comp.append(compressed_run())
+    finally:
+        ttrainer.compress_tree = inner
+    check(all(n > 0 for n in n_cc), f"[mesh c'] a kernel of the compressed "
+          f"step was not launched (flash fwd / bwd, xent fwd / bwd: {n_cc})")
+    check(comp[0].keys() == comp[1].keys() and all(
+        np.array_equal(comp[0][k], comp[1][k]) for k in comp[0]),
+          "[mesh c'] two compressed Trainer runs on the mesh differ")
+    check(len(seen) == 8, f"[mesh c'] {len(seen)} compressed steps, not 8")
+    n_leaf = 0
+    for before, after in seen:
+        want = leaves(tcomp.compress_tree(before), torch.is_tensor)
+        for g, a, w in zip(leaves(before, torch.is_tensor), after, want):
+            scale = tcomp.int8_scale(g.float().abs().max())
+            q = torch.round(a.float() / scale)
+            check(torch.equal(a, w) and torch.equal(q * scale, a.float())
+                  and float(q.abs().max()) <= 127,
+                  "[mesh c'] a compressed leaf gathered is not compress_tree "
+                  "of the gathered gradient, or not an integer multiple of "
+                  "its scale within +-127")
+            n_leaf += 1
+    check(any(not np.array_equal(comp[0][k], straight[k])
+              for k in straight if k.startswith("params/")),
+          "[mesh c'] compression changed no parameter")
+    say(f"[mesh c'] Trainer on the mesh with compression ({GRANITE} "
+        f"reduced, 4 x 64 tokens): 4 steps, twice, bit-equal; {n_leaf} "
+        f"compressed leaves over 8 steps, each gathered equal to "
+        f"compress_tree of the gathered gradient bit for bit, every element "
+        f"an integer multiple of its scale within +-127; launches a run: "
+        f"flash fwd / bwd {n_cc[0]} / {n_cc[1]}, xent fwd / bwd {n_cc[2]} / "
+        f"{n_cc[3]} ({time.perf_counter() - t_cc:.1f} s)")
+
     # the mesh step's kernels at a data group's shapes, against their plain
     # versions (these launches are not the main path's)
     gen = torch.Generator(device="cuda")
@@ -3383,6 +3461,147 @@ def mesh_kernels(res: dict) -> list:
              "source": f"src/repro_torch/kernels/csrc/{cu}",
              "replaces": f"src/repro/kernels/{py}.py:{line[py]}", **res[name]}
             for name, (cu, py) in src.items()]
+
+
+def dryrun_phase(card: str) -> dict:
+    """Phase 22: the dry-run (see the module docstring). Fails at the first
+    check that does not hold. Returns (b)'s launches of the mesh step's
+    kernels, forward and backward."""
+    from repro_torch.configs import ARCHS, SHAPES, cell_supported, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as tsh
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.xent import streaming_xent
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import stepfn
+    from repro_torch.models.model import model_template
+    from repro_torch.models.params import leaves
+    from repro_torch.training.optimizer import AdamW
+
+    # (a) the CLI over every cell and both production layouts, host only
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both", "--out", str(out)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(run.returncode == 0, f"[dryrun a] the CLI exited {run.returncode}: "
+          f"{(run.stdout + run.stderr)[-2000:]}")
+    # one OK / SKIP / FAIL line a cell; a record file for each cell that
+    # ran (the reference's CLI writes none for a skip)
+    lines = {tuple(ln.split()[1:4]): ln.split()[0]
+             for ln in run.stdout.splitlines()
+             if ln.split()[:1] in (["OK"], ["SKIP"], ["FAIL"])}
+    recs = {(r["arch"], r["shape"], r["mesh"]): r for r in (
+        json.loads(f.read_text()) for f in sorted(out.glob("*.json")))}
+    cells = [(a, sh_, m) for a in ARCHS for sh_ in SHAPES
+             for m in ("single", "multi")]
+    check(sorted(lines) == sorted(cells),
+          f"[dryrun a] {len(lines)} lines for {len(cells)} cells")
+    skips = {k for k, v in lines.items() if v == "SKIP"}
+    check(sorted(recs) == sorted(set(cells) - skips)
+          and all(r["status"] == "ok" for r in recs.values())
+          and all(lines[k] == "OK" for k in recs),
+          "[dryrun a] a cell that ran is not ok, or its record is missing")
+    want = {(a, sh_, m) for a, sh_, m in cells
+            if not cell_supported(get_config(a), SHAPES[sh_])[0]}
+    check(skips == want, f"[dryrun a] the skips {sorted(skips)} are not "
+          f"cell_supported's {sorted(want)}")
+    say(f"[dryrun a] python -m repro_torch.launch.dryrun --all --mesh both: "
+        f"{len(recs)} ok, {len(skips)} skipped, 0 errors, "
+        f"in {secs:.1f} s (host only)")
+    for (a, sh_, m), r in sorted(recs.items()):
+        if r["status"] == "ok" and SHAPES[sh_].kind == "train":
+            say(f"[dryrun a]   {a:24s} {sh_} {m:6s} microbatches "
+                f"{r['microbatches']}, kv_shard {r['kv_shard']}: "
+                f"{r['memory']['argument_bytes'] / 2**30:.3f} GB of "
+                f"arguments a device")
+
+    # (b) build_cell's step on a real 2 x 2 mesh on one card
+    t_b = time.perf_counter()
+    GRANITE, B, S = "granite-moe-3b-a800m", 4, 256
+    mesh = make_local_mesh(2, 2, devices=["cuda:0"] * 4)
+    cfg, ps, n_par = card_model(GRANITE, 22, master=True, n_layers=4)
+    shape = ShapeConfig("train_4x256", "train", S, B)
+    step, args, extra = dryrun.build_cell(cfg, shape, mesh, kv_shard="auto")
+    rec_bytes = dryrun.argument_bytes(args, step.in_specs, mesh)
+    rng = np.random.default_rng(22)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :S]).cuda(),
+             "targets": torch.from_numpy(toks[:, 1:].copy()).cuda()}
+    opt = AdamW(lr=3e-4)
+    state = {"params": ps, "opt_state": opt.init(ps),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    st, b = step.place(state, batch)
+    held = [sum(leaf.pieces[i][j].numel() * leaf.pieces[i][j].element_size()
+                for tree in (st["params"], st["opt_state"]["mu"],
+                             st["opt_state"]["nu"])
+                for leaf in leaves(tree, torch.is_tensor))
+            for i, j in mesh.slots()]
+    share = 2 * (B // 2) * S * 4 + 8     # tokens + targets, two counters
+    check(held == [rec_bytes - share] * 4,
+          f"[dryrun b] slot state bytes {held} differ from the record's "
+          f"{rec_bytes} less the batch's and counters' {share}")
+    # the direct step on the same state, laid out by the parameters' specs
+    specs = tsh.param_pspecs(model_template(cfg), mesh)
+    sp = tsh.put(ps, specs, mesh)
+    opt_d = AdamW(lr=3e-4)
+    direct = {"params": sp, "opt_state": opt_d.init(sp),
+              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    direct_step = stepfn.make_train_step(
+        cfg, opt_d, microbatches=1, remat=True,
+        constrain=tsh.make_constrain(mesh), moe_groups=2, mesh=mesh)
+    del ps, state
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    streaming_xent.launches = streaming_xent.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, m = step(st, b)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n_launch = (flash_attention.launches, flash_attention.bwd_launches,
+                streaming_xent.launches, streaming_xent.bwd_launches)
+    direct, md = direct_step(direct, batch)
+    check(n_launch == (16, 8, 2, 2),
+          f"[dryrun b] flash fwd / bwd, xent fwd / bwd launches {n_launch}, "
+          "not 16 / 8 / 2 / 2")
+    check(all(torch.equal(m[k], md[k]) for k in md) and all(
+        torch.equal(a, c) for x, y in zip(
+            leaves(st["params"], torch.is_tensor),
+            leaves(direct["params"], torch.is_tensor))
+        for a, c in zip(x.flat(), y.flat())),
+          "[dryrun b] build_cell's step differs from the step built directly")
+    check(all(math.isfinite(v.item()) for v in m.values()),
+          "[dryrun b] a metric is not finite")
+    say(f"[dryrun b] build_cell({GRANITE} at published widths, 4 layers, "
+        f"{n_par / 1e6:.1f} M parameters; train {B} x {S}) on "
+        f"make_local_mesh(2, 2, devices=['cuda:0'] * 4): extra {extra}; the "
+        f"record's argument_bytes {rec_bytes} a slot = state {held[0]} "
+        f"(params {held[0] // 3} x 3) + batch 4096 + counters 8; one step "
+        f"{ms:.1f} ms (cold), loss {m['loss'].item():.5f}, equal bit for bit "
+        f"to make_train_step's with build_cell's arguments (AdamW(lr=3e-4), "
+        f"moe_groups = 2); launches flash fwd / bwd {n_launch[0]} / "
+        f"{n_launch[1]}, xent fwd / bwd {n_launch[2]} / {n_launch[3]} "
+        f"((b) took {time.perf_counter() - t_b:.1f} s); {card}")
+    del st, direct, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(zip(("flash_attention_mesh", "flash_attention_bwd_mesh",
+                     "streaming_xent_mesh", "streaming_xent_bwd_mesh"),
+                    n_launch))
+
+
+def dryrun_kernels(res21: dict, launches22: dict) -> list:
+    """Phase 22's entries of the kernels line: (b)'s launches, beside the
+    times phase 21 took in this run at the same shapes (a data group's
+    (2, 256) tokens of granite-moe-3b-a800m)."""
+    return [dict(e, name=e["name"].replace("_mesh", "_dryrun"),
+                 launches=launches22[e["name"]])
+            for e in mesh_kernels(res21)]
 
 
 def card_line() -> str:
@@ -3487,8 +3706,8 @@ def main():
         return
     if len(sys.argv) == 2 and sys.argv[1] in ("--phase17", "--phase18",
                                                "--phase19", "--phase20",
-                                               "--phase21", "--lm-depth",
-                                               "--mesh-gates"):
+                                               "--phase21", "--phase22",
+                                               "--lm-depth", "--mesh-gates"):
         sys.path.insert(0, str(ROOT / "src"))
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
@@ -3523,6 +3742,16 @@ def main():
             t0 = time.perf_counter()
             say(json.dumps({"kernels": mesh_kernels(mesh_phase(card))}))
             say(f"[phase 21] done in {time.perf_counter() - t0:.1f} s")
+            return
+        if sys.argv[1] == "--phase22":
+            from repro_torch.kernels import _build
+            t0 = time.perf_counter()
+            _build.build(("flash_attention", "flash_attention_bwd", "xent"))
+            say(f"[build] flash_attention, flash_attention_bwd, xent "
+                f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            say(json.dumps({"launches": dryrun_phase(card)}))
+            say(f"[phase 22] done in {time.perf_counter() - t0:.1f} s")
             return
         if sys.argv[1] == "--phase19":
             from repro_torch.kernels import _build
@@ -5520,6 +5749,14 @@ def main():
     mesh21 = mesh_phase(card)
     say(f"[phase 21] done in {time.perf_counter() - t21:.1f} s")
 
+    # ---- phase 22: the dry-run -------------------------------------------
+    say(f"[phase 22] starts at {time.perf_counter() - t_smoke:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t22 = time.perf_counter()
+    dry22 = dryrun_phase(card)
+    say(f"[phase 22] done in {time.perf_counter() - t22:.1f} s")
+
     # ds_estep: the public call at the stream's refresh shape (the task
     # route's warp mode), and the task kernel at the offline EM's C4 shape
     # (block mode, the table in shared memory); entropy_scores: the narrow
@@ -5668,7 +5905,8 @@ def main():
         "name": "entropy_scores_sharded", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/entropy.cu",
         "replaces": "src/repro/kernels/uncertainty.py:55",
-        **sh20["entropy"]}] + mesh_kernels(mesh21)}))
+        **sh20["entropy"]}] + mesh_kernels(mesh21)
+        + dryrun_kernels(mesh21, dry22)}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind,
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,9 @@ slot order and lands on a stated device, so a run repeats bit for bit.
 Functions, not module constants: importing this module touches no device.
 
 ``make_production_mesh`` (the reference's 16x16 and 2x16x16 TPU pod
-meshes) has no counterpart on one host's cards and raises.
+meshes) has no counterpart on one host's cards and raises. The dry-run
+(:mod:`repro_torch.launch.dryrun`) reads those layouts' shapes only:
+:class:`MeshLayout`, :func:`production_layout`, :func:`layout_of`.
 """
 from __future__ import annotations
 
@@ -119,13 +121,55 @@ def _sum_in_order(xs, device):
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """A mesh's shape and nothing else: ``axis_names`` and their sizes
+    ``dims``, no devices. ``axis_names``, ``shape`` and ``size`` are all
+    the sharding rules read (``_resolve``, ``sanitize``,
+    ``Constrain.spec``, ``batch_axes``, ``cache_pspecs``,
+    ``input_pspecs``), so a layout stands for a mesh of more chips than
+    one host holds."""
+    axis_names: tuple
+    dims: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.dims)
+
+
+def production_layout(*, multi_pod: bool = False) -> MeshLayout:
+    """The reference's production meshes as layouts: ``("data", "model")``
+    16 x 16 (256 chips), or ``("pod", "data", "model")`` 2 x 16 x 16."""
+    if multi_pod:
+        return MeshLayout(("pod", "data", "model"), (2, 16, 16))
+    return MeshLayout(("data", "model"), (16, 16))
+
+
+def layout_of(mesh_shape: str) -> MeshLayout:
+    """A layout from the dry-run's ``--mesh-shape`` (``"128x2"``: two
+    dimensions are ``("data", "model")``, three ``("pod", "data",
+    "model")``), named as the reference names it."""
+    dims = tuple(int(x) for x in mesh_shape.split("x"))
+    names = (("data", "model") if len(dims) == 2
+             else ("pod", "data", "model"))
+    if len(dims) != len(names):
+        raise ValueError(f"--mesh-shape {mesh_shape!r}: give 2 or 3 sizes")
+    return MeshLayout(names, dims)
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """The reference's 16x16 (256-chip) and 2x16x16 (512-chip) TPU pod
-    meshes have no counterpart on one host's cards: raises."""
+    meshes have no counterpart on one host's cards: raises
+    (:func:`production_layout` is their shape for the dry-run)."""
     raise NotImplementedError(
         "make_production_mesh: the reference's 16x16 and 2x16x16 meshes are "
         "TPU pod layouts (256 / 512 chips joined by ICI); the port runs on "
-        "one host's cards: use make_local_mesh")
+        "one host's cards: use make_local_mesh, or production_layout() for "
+        "the dry-run's shape-only layout")
 
 
 def make_local_mesh(n_data: int = 1, n_model: int = 1, device="cuda",

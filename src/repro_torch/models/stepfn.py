@@ -131,14 +131,12 @@ def make_train_step(cfg, optimizer, *, microbatches=1, remat=True,
     are split into ``microbatches`` accumulation steps run in order
     (float32 accumulators from zero, divided by ``microbatches``, as the
     reference's scan). ``grad_transform`` hooks gradient compression
-    (:mod:`repro_torch.distributed.compression`; one device only). The
-    optimizer updates the parameters and its moments in place (see
+    (:mod:`repro_torch.distributed.compression`; on a mesh it gets the
+    tree of Sharded gradients). The optimizer updates the parameters and
+    its moments in place (see
     :mod:`repro_torch.training.optimizer`); metrics are 0-d float32 tensors
     ``loss``, ``aux`` and ``grad_norm``. With ``mesh`` the state's
     parameters and moments are Sharded (see the module docstring)."""
-    if mesh is not None and grad_transform is not None:
-        raise NotImplementedError("gradient compression runs on one device: "
-                                  "no grad_transform on a mesh")
     loss_fn = make_loss_fn(cfg, remat=remat, attn_impl=attn_impl,
                            constrain=constrain, moe_groups=moe_groups,
                            mesh=mesh, opt=opt, compute_dtype=compute_dtype)

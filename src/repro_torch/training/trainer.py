@@ -4,9 +4,9 @@
 Wires together the step function (:mod:`repro_torch.models.stepfn`), AdamW
 with the cosine schedule, atomic checkpoints (optionally written on a
 background thread), the straggler-mitigated prefetch loader and optional
-gradient compression (one device). Parameters are drawn from a CPU
-``torch.Generator`` seeded with ``TrainConfig.seed``, so a seed gives the
-same model on every device. On a mesh (``mesh=``, an
+gradient compression (on one device or a mesh). Parameters are drawn from
+a CPU ``torch.Generator`` seeded with ``TrainConfig.seed``, so a seed
+gives the same model on every device. On a mesh (``mesh=``, an
 :class:`~repro_torch.launch.mesh.LMMesh`) the parameters and the
 optimizer state are laid out by the parameters' specs, the step's MoE
 groups are ``mesh.size`` (the reference's ``mesh.devices.size``: every

@@ -58,3 +58,20 @@ def test_the_rule_catches_what_it_should():
         assert _forbidden(mod), mod
     for mod in ("repro_torch", "repro_torch.obs", "torch", "numpy"):
         assert not _forbidden(mod), mod
+
+
+def _modules(pkg: str) -> set:
+    base = ROOT / "src" / pkg
+    return {p.relative_to(base).as_posix() for p in base.rglob("*.py")}
+
+
+def test_the_port_mirrors_the_reference_module_for_module():
+    """The port's module files are the reference's, save the one with no
+    torch meaning (``launch/hlo_analysis.py`` parses XLA HLO text) and the
+    port's own additions: package ``__init__.py`` files, ``device.py``
+    and the kernel build module ``kernels/_build.py``."""
+    ref, port = _modules("repro"), _modules("repro_torch")
+    inits = lambda mods: {m for m in mods if m.endswith("__init__.py")}
+    assert ref - inits(ref) - {"launch/hlo_analysis.py"} == \
+        port - inits(port) - {"device.py", "kernels/_build.py"}
+    assert "launch/dryrun.py" in port and "configs/xlstm_125m.py" in port
