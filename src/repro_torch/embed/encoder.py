@@ -28,6 +28,7 @@ from repro_torch.device import full_fp32, resolve_device
 from repro_torch.embed.config import EmbedConfig
 from repro_torch.models.model import compute_params, forward, model_template
 from repro_torch.models.params import init_params
+from repro_torch.obs import timing
 
 # offset of the projection's stream from the parameters' (the reference
 # folds 0x9E3779B9 into the seed's key)
@@ -137,13 +138,14 @@ def encode(ec: EmbedConfig, tokens, lengths, n_features: int, *,
     N, B = int(tokens.shape[0]), ec.batch_size
     feats = []
     for i in range(0, N, B):
-        tb, lb = tokens[i:i + B], lengths[i:i + B]
-        n = int(tb.shape[0])
-        if n < B:
-            tb = torch.cat([tb, tb[-1:].expand(B - n, -1)])
-            lb = torch.cat([lb, lb[-1:].expand(B - n)])
-        feats.append(_embed_batch(cfg, cparams, tb, lb, ec.pooling,
-                                  proj)[:n])
+        with timing.span("encode.batch"):
+            tb, lb = tokens[i:i + B], lengths[i:i + B]
+            n = int(tb.shape[0])
+            if n < B:
+                tb = torch.cat([tb, tb[-1:].expand(B - n, -1)])
+                lb = torch.cat([lb, lb[-1:].expand(B - n)])
+            feats.append(_embed_batch(cfg, cparams, tb, lb, ec.pooling,
+                                      proj)[:n])
     if not feats:
         return torch.empty((0, n_features), dtype=torch.float32, device=dev)
     return torch.cat(feats, dim=0)

@@ -697,91 +697,94 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     up = _uniform_block(seed, step, 8 * P).reshape(B, 8, P)
 
     # ---- backlog push + admission into free window slots -----------------
-    free = ~win["active"]
-    if cfg.batch_replay:
-        # naive fixed-batch replay: refill only once the window is drained
-        gate = free.all(-1)
-    else:
-        gate = torch.ones((B,), dtype=torch.bool, device=dev)
-    frank = torch.cumsum(free.to(torch.int64), -1) - 1
-    if R.admission != "fifo":
-        bl, dropped, admit, arr_t, diff, tl, featw, uid_w, adm = \
-            _admit_ranked(cfg, bl, n_arr, free, frank, gate, t, step, seed,
-                          lp, uid_base, ov, bank, feat_in, labels_in)
-    else:
-        bl, dropped, admit, arr_t, diff, tl, featw, uid_w, adm = \
-            _admit_fifo(cfg, bl, n_arr, free, frank, gate, t, step, seed,
-                        uid_base, ov, bank, feat_in, labels_in)
-    bl_count = bl["count"]
-    win = dict(win)
-    win["active"] = win["active"] | admit
-    win["arrival_t"] = torch.where(admit, arr_t, win["arrival_t"])
-    win["difficulty"] = torch.where(admit, diff, win["difficulty"])
-    win["true_label"] = torch.where(admit, tl, win["true_label"])
-    win["n_votes"] = torch.where(admit, 0, win["n_votes"])
-    win["logpost"] = torch.where(admit[..., None], 0.0, win["logpost"])
-    if L.enabled:
-        win["feat"] = torch.where(admit[..., None], featw, win["feat"])
-    if cfg.serve:
-        win["uid"] = torch.where(admit, uid_w, win["uid"])
-    if tr_ph:
-        win["admit_t"] = torch.where(admit, t, win["admit_t"])
-        win["work_s"] = torch.where(admit, 0.0, win["work_s"])
-        win["wait_s"] = torch.where(admit, 0.0, win["wait_s"])
-        win["last_evt_t"] = torch.where(admit, t, win["last_evt_t"])
+    with timing.span("tick.admit", dev):
+        free = ~win["active"]
+        if cfg.batch_replay:
+            # naive fixed-batch replay: refill only once the window is drained
+            gate = free.all(-1)
+        else:
+            gate = torch.ones((B,), dtype=torch.bool, device=dev)
+        frank = torch.cumsum(free.to(torch.int64), -1) - 1
+        if R.admission != "fifo":
+            bl, dropped, admit, arr_t, diff, tl, featw, uid_w, adm = \
+                _admit_ranked(cfg, bl, n_arr, free, frank, gate, t, step, seed,
+                              lp, uid_base, ov, bank, feat_in, labels_in)
+        else:
+            bl, dropped, admit, arr_t, diff, tl, featw, uid_w, adm = \
+                _admit_fifo(cfg, bl, n_arr, free, frank, gate, t, step, seed,
+                            uid_base, ov, bank, feat_in, labels_in)
+        bl_count = bl["count"]
+        win = dict(win)
+        win["active"] = win["active"] | admit
+        win["arrival_t"] = torch.where(admit, arr_t, win["arrival_t"])
+        win["difficulty"] = torch.where(admit, diff, win["difficulty"])
+        win["true_label"] = torch.where(admit, tl, win["true_label"])
+        win["n_votes"] = torch.where(admit, 0, win["n_votes"])
+        win["logpost"] = torch.where(admit[..., None], 0.0, win["logpost"])
+        if L.enabled:
+            win["feat"] = torch.where(admit[..., None], featw, win["feat"])
+        if cfg.serve:
+            win["uid"] = torch.where(admit, uid_w, win["uid"])
+        if tr_ph:
+            win["admit_t"] = torch.where(admit, t, win["admit_t"])
+            win["work_s"] = torch.where(admit, 0.0, win["work_s"])
+            win["wait_s"] = torch.where(admit, 0.0, win["wait_s"])
+            win["last_evt_t"] = torch.where(admit, t, win["last_evt_t"])
 
     # ---- completions -> votes -> online posterior -----------------------
-    ws = dict(ws)
-    active_w = ws["assigned"] >= 0
-    comp = active_w & (ws["busy_until"] <= t)
-    a_idx = torch.clamp(ws["assigned"], min=0)
-    tid = torch.where(comp, ws["assigned"], Ws)
-    lat = torch.where(comp, ws["busy_until"] - ws["start_t"], 0.0)
-    d_w = torch.gather(win["difficulty"], 1, a_idx)
-    p_corr = torch.clamp(1.0 / C + (ws["acc"] - 1.0 / C) * d_w, 1.0 / C,
-                         0.995)
-    tl_w = torch.gather(win["true_label"], 1, a_idx)
-    correct = up[:, 0] < p_corr
-    wrong = torch.floor(up[:, 1] * max(C - 1, 1)).to(torch.int64)
-    label = torch.where(correct, tl_w,
-                        torch.where(wrong >= tl_w, wrong + 1, wrong))
-    # vote slot position: n_votes before this tick + rank among this tick's
-    # completions of the same task; votes landing past the cap are dropped
-    pr = torch.arange(P, device=dev)
-    prior_ct = ((tid[:, None, :] == tid[:, :, None]) & comp[:, None, :]
-                & (pr[None, :] < pr[:, None])).sum(-1)
-    vpos = torch.gather(win["n_votes"], 1, a_idx) + prior_ct
-    keep = comp & (vpos < cap_t)
-    tid_k = torch.where(keep, tid, Ws)
-    vpos_k = torch.clamp(torch.where(keep, vpos, 0), 0, cap - 1)
-    lin = tid_k * cap + vpos_k                  # kept (task, slot) are unique
-    flat_w = win["vote_wid"].reshape(B, -1)
-    flat_l = win["vote_lab"].reshape(B, -1)
-    win["vote_wid"] = flat_w.scatter(
-        1, lin, torch.where(keep, pr, torch.gather(flat_w, 1, lin))
-    ).reshape(B, Ws + 1, cap)
-    win["vote_lab"] = flat_l.scatter(
-        1, lin, torch.where(keep, label, torch.gather(flat_l, 1, lin))
-    ).reshape(B, Ws + 1, cap)
-    # online DS E-step: add the voter's estimated log-odds to the voted class
-    a_e = _acc_hat(cfg, ws)
-    delta = torch.log(a_e * max(C - 1, 1) / (1.0 - a_e))
-    lp_all = torch.cat([win["logpost"],
-                        torch.zeros((B, 1, C), device=dev)], 1).reshape(B, -1)
-    win["logpost"] = _add_at(lp_all, tid_k * C + label,
-                             torch.where(keep, delta, 0.0)
-                             ).reshape(B, Ws + 1, C)[:, :Ws]
-    win["n_votes"] = win["n_votes"] + _count_rows(
-        Ws + 1, torch.where(keep, tid_k, Ws))[:, :Ws]
-    if tr_ph:
-        # the completion instant of this tick's credited votes (busy_until
-        # still holds it; it is reset below): the finalize lag counts from
-        # the last evidence the posterior saw. A max is exact in any order
-        evt = torch.cat([win["last_evt_t"],
-                         torch.zeros((B, 1), device=dev)], 1)
-        win["last_evt_t"] = evt.scatter_reduce(
-            1, tid_k, torch.where(keep, ws["busy_until"], -INF), "amax"
-        )[:, :Ws]
+    with timing.span("tick.votes", dev):
+        ws = dict(ws)
+        active_w = ws["assigned"] >= 0
+        comp = active_w & (ws["busy_until"] <= t)
+        a_idx = torch.clamp(ws["assigned"], min=0)
+        tid = torch.where(comp, ws["assigned"], Ws)
+        lat = torch.where(comp, ws["busy_until"] - ws["start_t"], 0.0)
+        d_w = torch.gather(win["difficulty"], 1, a_idx)
+        p_corr = torch.clamp(1.0 / C + (ws["acc"] - 1.0 / C) * d_w, 1.0 / C,
+                             0.995)
+        tl_w = torch.gather(win["true_label"], 1, a_idx)
+        correct = up[:, 0] < p_corr
+        wrong = torch.floor(up[:, 1] * max(C - 1, 1)).to(torch.int64)
+        label = torch.where(correct, tl_w,
+                            torch.where(wrong >= tl_w, wrong + 1, wrong))
+        # vote slot position: n_votes before this tick + rank among this tick's
+        # completions of the same task; votes landing past the cap are dropped
+        pr = torch.arange(P, device=dev)
+        prior_ct = ((tid[:, None, :] == tid[:, :, None]) & comp[:, None, :]
+                    & (pr[None, :] < pr[:, None])).sum(-1)
+        vpos = torch.gather(win["n_votes"], 1, a_idx) + prior_ct
+        keep = comp & (vpos < cap_t)
+        tid_k = torch.where(keep, tid, Ws)
+        vpos_k = torch.clamp(torch.where(keep, vpos, 0), 0, cap - 1)
+        lin = tid_k * cap + vpos_k              # kept (task, slot) are unique
+        flat_w = win["vote_wid"].reshape(B, -1)
+        flat_l = win["vote_lab"].reshape(B, -1)
+        win["vote_wid"] = flat_w.scatter(
+            1, lin, torch.where(keep, pr, torch.gather(flat_w, 1, lin))
+        ).reshape(B, Ws + 1, cap)
+        win["vote_lab"] = flat_l.scatter(
+            1, lin, torch.where(keep, label, torch.gather(flat_l, 1, lin))
+        ).reshape(B, Ws + 1, cap)
+        # online DS E-step: add the voter's estimated log-odds to its class
+        a_e = _acc_hat(cfg, ws)
+        delta = torch.log(a_e * max(C - 1, 1) / (1.0 - a_e))
+        lp_all = torch.cat([win["logpost"],
+                            torch.zeros((B, 1, C), device=dev)], 1
+                           ).reshape(B, -1)
+        win["logpost"] = _add_at(lp_all, tid_k * C + label,
+                                 torch.where(keep, delta, 0.0)
+                                 ).reshape(B, Ws + 1, C)[:, :Ws]
+        win["n_votes"] = win["n_votes"] + _count_rows(
+            Ws + 1, torch.where(keep, tid_k, Ws))[:, :Ws]
+        if tr_ph:
+            # the completion instant of this tick's credited votes (busy_until
+            # still holds it; it is reset below): the finalize lag counts from
+            # the last evidence the posterior saw. A max is exact in any order
+            evt = torch.cat([win["last_evt_t"],
+                             torch.zeros((B, 1), device=dev)], 1)
+            win["last_evt_t"] = evt.scatter_reduce(
+                1, tid_k, torch.where(keep, ws["busy_until"], -INF), "amax"
+            )[:, :Ws]
 
     # ---- periodic offline full-confusion Dawid-Skene refresh ------------
     # every refresh_every ticks, re-run the exact batched EM on the
@@ -789,173 +792,182 @@ def _shard_tick(cfg: StreamConfig, ws, banks, win, bl, n_arr, t: float,
     # estimates from it; one E-step launch per iteration for all shards
     if cfg.refresh_every > 0 \
             and step % cfg.refresh_every == cfg.refresh_every - 1:
-        vmask_r = (torch.arange(cap, device=dev)[None, None, :]
-                   < win["n_votes"][..., None]) & win["active"][..., None]
-        em = _ds_em(win["vote_lab"][:, :Ws], win["vote_wid"][:, :Ws],
-                    vmask_r, P + 1, C, cfg.refresh_iters, False)
-        vpw = em["votes_per_worker"][:, :P]
-        win["logpost"] = torch.where(
-            (win["active"] & (win["n_votes"] > 0))[..., None],
-            em["log_posterior"], win["logpost"])
-        ws["est_correct"] = em["accuracy"][:, :P] * vpw
-        ws["est_n"] = vpw
+        with timing.span("tick.refresh", dev):
+            vmask_r = (torch.arange(cap, device=dev)[None, None, :]
+                       < win["n_votes"][..., None]) \
+                & win["active"][..., None]
+            em = _ds_em(win["vote_lab"][:, :Ws], win["vote_wid"][:, :Ws],
+                        vmask_r, P + 1, C, cfg.refresh_iters, False)
+            vpw = em["votes_per_worker"][:, :P]
+            win["logpost"] = torch.where(
+                (win["active"] & (win["n_votes"] > 0))[..., None],
+                em["log_posterior"], win["logpost"])
+            ws["est_correct"] = em["accuracy"][:, :P] * vpw
+            ws["est_n"] = vpw
 
     # ---- learner fusion (product of experts) ----------------------------
-    # the policy reads the crowd posterior fused with the learner's: tasks
-    # the model already knows finalize after min_votes_known crowd votes
-    if L.enabled:
-        model_lg = ordered_matmul(win["feat"], lp["lW"]) + lp["lb"][:, None]
-        fused = fuse_posteriors(win["logpost"],
-                                torch.log_softmax(model_lg, dim=-1),
-                                lp["fuse_w"][:, None, None])
-        known, known_fin = learner_known(
-            fused, win["n_votes"], threshold=L.known_threshold,
-            min_votes_known=L.min_votes_known)
-    else:
-        fused = win["logpost"]
+    with timing.span("tick.fuse", dev):
+        # the policy reads the crowd posterior fused with the learner's: tasks
+        # the model already knows finalize after min_votes_known crowd votes
+        if L.enabled:
+            model_lg = ordered_matmul(win["feat"], lp["lW"]) \
+                + lp["lb"][:, None]
+            fused = fuse_posteriors(win["logpost"],
+                                    torch.log_softmax(model_lg, dim=-1),
+                                    lp["fuse_w"][:, None, None])
+            known, known_fin = learner_known(
+                fused, win["n_votes"], threshold=L.known_threshold,
+                min_votes_known=L.min_votes_known)
+        else:
+            fused = win["logpost"]
 
     # ---- finalization (adaptive redundancy) -----------------------------
-    fin, conf = should_finalize(fused, win["n_votes"], pol, cap=cap_eff)
-    if L.enabled:
-        fin = fin | known_fin
-    fin = fin & win["active"]
-    result = fused.argmax(-1)
-    tis = torch.where(fin, t - win["arrival_t"], 0.0)
-    # steady-state metrics count tasks by ARRIVAL-time warmth
-    wfin = fin & (win["arrival_t"] >= warmup_t)
-    nbin = cfg.tis_bins
-    hbin = torch.clamp((tis / cfg.tis_bin_s).to(torch.int64), 0, nbin - 1)
-    hist_d = _count_rows(nbin + 1, torch.where(wfin, hbin, nbin))[:, :nbin]
-    done_d = wfin.sum(-1)
-    corr_d = (wfin & (result == win["true_label"])).sum(-1)
-    tis_d = (tis * wfin).sum(-1)
-    votesfin_d = (win["n_votes"] * wfin).sum(-1)
-    if tr_ph:
-        # the latency-source decomposition at finalize, the phases in
-        # TRACE_PHASES order: backlog wait + window wait + work time is the
-        # time in system (the tick accounting below); the finalize lag
-        # overlaps the tail. All four bin into one (B, 4, nbin) histogram
-        ph_vals = torch.stack([win["admit_t"] - win["arrival_t"],
-                               win["wait_s"], win["work_s"],
-                               torch.clamp(t - win["last_evt_t"], min=0.0)],
-                              1)
-        pb = torch.clamp((ph_vals / cfg.tis_bin_s).to(torch.int64), 0,
-                         nbin - 1)
-        pb = torch.where(wfin[:, None], pb, nbin) + (nbin + 1) \
-            * torch.arange(4, device=dev)[:, None]
-        ph_hist = _count_rows(4 * (nbin + 1), pb.reshape(B, -1)
-                              ).reshape(B, 4, nbin + 1)[..., :nbin]
-        ph_sum = (ph_vals * wfin[:, None]).sum(-1)
-    # credit voters of finalized tasks by agreement with the final label
-    # (incremental hard-EM M-step for the online accuracy estimates)
-    vmask = (torch.arange(cap, device=dev)[None, None, :]
-             < win["n_votes"][..., None]) & fin[..., None]
-    vw = torch.where(vmask, win["vote_wid"][:, :Ws], P).reshape(B, -1)
-    agree = ((win["vote_lab"][:, :Ws] == result[..., None])
-             & vmask).reshape(B, -1)
-    n_agree = torch.zeros((B, P + 1), dtype=torch.int64, device=dev
-                          ).scatter_add_(1, vw, agree.to(torch.int64))
-    ws["est_correct"] = ws["est_correct"] + n_agree[:, :P].to(torch.float32)
-    ws["est_n"] = ws["est_n"] + _count_rows(P + 1, vw)[:, :P].to(
-        torch.float32)
-    win["active"] = win["active"] & ~fin
+    with timing.span("tick.finalize", dev):
+        fin, conf = should_finalize(fused, win["n_votes"], pol, cap=cap_eff)
+        if L.enabled:
+            fin = fin | known_fin
+        fin = fin & win["active"]
+        result = fused.argmax(-1)
+        tis = torch.where(fin, t - win["arrival_t"], 0.0)
+        # steady-state metrics count tasks by ARRIVAL-time warmth
+        wfin = fin & (win["arrival_t"] >= warmup_t)
+        nbin = cfg.tis_bins
+        hbin = torch.clamp((tis / cfg.tis_bin_s).to(torch.int64), 0, nbin - 1)
+        hist_d = _count_rows(nbin + 1, torch.where(wfin, hbin, nbin))[:, :nbin]
+        done_d = wfin.sum(-1)
+        corr_d = (wfin & (result == win["true_label"])).sum(-1)
+        tis_d = (tis * wfin).sum(-1)
+        votesfin_d = (win["n_votes"] * wfin).sum(-1)
+        if tr_ph:
+            # the latency-source decomposition at finalize, the phases in
+            # TRACE_PHASES order: backlog wait + window wait + work time is the
+            # time in system (the tick accounting below); the finalize lag
+            # overlaps the tail. All four bin into one (B, 4, nbin) histogram
+            ph_vals = torch.stack(
+                [win["admit_t"] - win["arrival_t"], win["wait_s"],
+                 win["work_s"], torch.clamp(t - win["last_evt_t"], min=0.0)],
+                1)
+            pb = torch.clamp((ph_vals / cfg.tis_bin_s).to(torch.int64), 0,
+                             nbin - 1)
+            pb = torch.where(wfin[:, None], pb, nbin) + (nbin + 1) \
+                * torch.arange(4, device=dev)[:, None]
+            ph_hist = _count_rows(4 * (nbin + 1), pb.reshape(B, -1)
+                                  ).reshape(B, 4, nbin + 1)[..., :nbin]
+            ph_sum = (ph_vals * wfin[:, None]).sum(-1)
+        # credit voters of finalized tasks by agreement with the final label
+        # (incremental hard-EM M-step for the online accuracy estimates)
+        vmask = (torch.arange(cap, device=dev)[None, None, :]
+                 < win["n_votes"][..., None]) & fin[..., None]
+        vw = torch.where(vmask, win["vote_wid"][:, :Ws], P).reshape(B, -1)
+        agree = ((win["vote_lab"][:, :Ws] == result[..., None])
+                 & vmask).reshape(B, -1)
+        n_agree = torch.zeros((B, P + 1), dtype=torch.int64, device=dev
+                              ).scatter_add_(1, vw, agree.to(torch.int64))
+        ws["est_correct"] = ws["est_correct"] \
+            + n_agree[:, :P].to(torch.float32)
+        ws["est_n"] = ws["est_n"] + _count_rows(P + 1, vw)[:, :P].to(
+            torch.float32)
+        win["active"] = win["active"] & ~fin
 
     # ---- worker bookkeeping: completers + straggler losers --------------
-    lose = active_w & ~comp & torch.gather(fin, 1, a_idx)
-    win_lat = torch.zeros((B, Ws + 1), device=dev).scatter_reduce(
-        1, tid, lat, "amax")[:, :Ws]
-    winner = torch.where(lose, torch.gather(win_lat, 1, a_idx), 0.0)
-    freed = comp | lose
-    ws["n_completed"] = ws["n_completed"] + comp
-    ws["n_terminated"] = ws["n_terminated"] + lose
-    ws["comp_sum"] = ws["comp_sum"] + lat * comp
-    ws["comp_sqsum"] = ws["comp_sqsum"] + lat * lat * comp
-    ws["term_sum"] = ws["term_sum"] + winner * lose
-    # completion-latency EWMA: the routing speed axis (route_scores)
-    ws["lat_ewma"] = torch.where(
-        comp, (1.0 - R.ewma_alpha) * ws["lat_ewma"] + R.ewma_alpha * lat,
-        ws["lat_ewma"])
-    ws["cost_work"] = ws["cost_work"] + freed.sum(-1) * WORK_PAY_PER_RECORD
-    ws["blocked_until"] = torch.where(
-        comp, ws["busy_until"],
-        torch.where(lose, t + SWITCH_DELAY_S, ws["blocked_until"]))
-    ws["assigned"] = torch.where(freed, -1, ws["assigned"])
-    ws["busy_until"] = torch.where(freed, INF, ws["busy_until"])
+    with timing.span("tick.workers", dev):
+        lose = active_w & ~comp & torch.gather(fin, 1, a_idx)
+        win_lat = torch.zeros((B, Ws + 1), device=dev).scatter_reduce(
+            1, tid, lat, "amax")[:, :Ws]
+        winner = torch.where(lose, torch.gather(win_lat, 1, a_idx), 0.0)
+        freed = comp | lose
+        ws["n_completed"] = ws["n_completed"] + comp
+        ws["n_terminated"] = ws["n_terminated"] + lose
+        ws["comp_sum"] = ws["comp_sum"] + lat * comp
+        ws["comp_sqsum"] = ws["comp_sqsum"] + lat * lat * comp
+        ws["term_sum"] = ws["term_sum"] + winner * lose
+        # completion-latency EWMA: the routing speed axis (route_scores)
+        ws["lat_ewma"] = torch.where(
+            comp, (1.0 - R.ewma_alpha) * ws["lat_ewma"] + R.ewma_alpha * lat,
+            ws["lat_ewma"])
+        ws["cost_work"] = ws["cost_work"] + freed.sum(-1) * WORK_PAY_PER_RECORD
+        ws["blocked_until"] = torch.where(
+            comp, ws["busy_until"],
+            torch.where(lose, t + SWITCH_DELAY_S, ws["blocked_until"]))
+        ws["assigned"] = torch.where(freed, -1, ws["assigned"])
+        ws["busy_until"] = torch.where(freed, INF, ws["busy_until"])
 
-    # ---- churn + latency maintenance (shared simfast machinery) ---------
-    ws, leave = churn_and_maintain(fast, ws, banks, t, up[:, 2], up[:, 3],
-                                   cfg.recruit_mean_s)
-    ws["est_correct"] = torch.where(leave, 0.0, ws["est_correct"])
-    ws["est_n"] = torch.where(leave, 0.0, ws["est_n"])
-    ws["lat_ewma"] = torch.where(leave, cfg.median_mu, ws["lat_ewma"])
-    # stored votes key on the pool slot: remap votes cast by departing
-    # workers to the dump slot P so crediting cannot charge the replacement
-    leave_pad = torch.cat([leave, torch.zeros((B, 1), dtype=torch.bool,
-                                              device=dev)], 1)
-    gone = torch.gather(leave_pad, 1, win["vote_wid"].reshape(B, -1)
-                        ).reshape(win["vote_wid"].shape)
-    win["vote_wid"] = torch.where(gone, P, win["vote_wid"])
+        # ---- churn + latency maintenance (shared simfast machinery) ---------
+        ws, leave = churn_and_maintain(fast, ws, banks, t, up[:, 2], up[:, 3],
+                                       cfg.recruit_mean_s)
+        ws["est_correct"] = torch.where(leave, 0.0, ws["est_correct"])
+        ws["est_n"] = torch.where(leave, 0.0, ws["est_n"])
+        ws["lat_ewma"] = torch.where(leave, cfg.median_mu, ws["lat_ewma"])
+        # stored votes key on the pool slot: remap votes cast by departing
+        # workers to the dump slot P so crediting cannot charge the replacement
+        leave_pad = torch.cat([leave, torch.zeros((B, 1), dtype=torch.bool,
+                                                  device=dev)], 1)
+        gone = torch.gather(leave_pad, 1, win["vote_wid"].reshape(B, -1)
+                            ).reshape(win["vote_wid"].shape)
+        win["vote_wid"] = torch.where(gone, P, win["vote_wid"])
 
     # ---- assignment: understaffed tasks first, then duplicates ----------
-    avail = (ws["assigned"] < 0) & (ws["blocked_until"] <= t) \
-        & (ws["session_end"] > t)
-    n_asg = _count_rows(Ws + 1, torch.where(ws["assigned"] >= 0,
-                                            ws["assigned"], Ws))[:, :Ws]
-    want = target_outstanding(win["n_votes"], pol, cap=cap_eff)
-    if L.enabled:
-        # a model-known task requests only the crowd votes it still needs
-        # to clear the min_votes_known floor
-        want = torch.where(known, torch.minimum(want, torch.clamp(
-            L.min_votes_known - win["n_votes"], min=0)), want)
-    tier1 = win["active"] & (n_asg < want)
-    if cfg.straggler:
-        extra = torch.clamp(want, max=cfg.max_dup)
-        tier2 = win["active"] & (want > 0) & (n_asg >= want) \
-            & (n_asg < want + extra)
-    else:
-        tier2 = torch.zeros_like(tier1)
-    if R.enabled:
-        # FROG-style routing: workers x window slots scored from the online
-        # accuracy estimate (after this tick's crediting and churn) and the
-        # latency EWMA, task uncertainty from the FUSED posterior
-        shift = (_uniform_block(seed ^ 0xA5A5A5A5, step, 1)[:, 0]
-                 * Ws).to(torch.int64)
-        scores = route_scores(_acc_hat(cfg, ws), ws["lat_ewma"],
-                              uncertainty(fused), R)
-        take, task_for_w, _, _ = scored_match(scores, avail, tier1, tier2,
-                                              shift)
-    elif L.enabled and L.prioritize:
-        # votes go to the window tasks with the LOWEST fused confidence
-        # first: match in that permuted slot order and map back
-        unc = torch.where(win["active"], -confidence(fused), -INF)
-        perm = torch.argsort(-unc, dim=-1, stable=True)
-        take, task_p, _, _ = priority_match(
-            avail, torch.gather(tier1, 1, perm), torch.gather(tier2, 1, perm),
-            torch.zeros((B,), dtype=torch.int64, device=dev))
-        task_for_w = torch.gather(perm, 1, task_p)
-    else:
-        shift = (_uniform_block(seed ^ 0xA5A5A5A5, step, 1)[:, 0]
-                 * Ws).to(torch.int64)
-        take, task_for_w, _, _ = priority_match(avail, tier1, tier2, shift)
-    lat_new = draw_latency(fast, ws["mu"], ws["sigma"], up[:, 6], up[:, 7])
-    ws["assigned"] = torch.where(take, task_for_w, ws["assigned"])
-    ws["busy_until"] = torch.where(take, t + lat_new, ws["busy_until"])
-    ws["start_t"] = torch.where(take, t, ws["start_t"])
-    ws["n_started"] = ws["n_started"] + take
-    waiting = avail & ~take
-    ws["cost_wait"] = ws["cost_wait"] \
-        + waiting.sum(-1) * cfg.dt * WAIT_PAY_PER_S
-    if tr_ph:
-        # this tick is work time for every still-active task staffed after
-        # the matching, window wait for the others; a task admitted at tick
-        # k and finalized at tick k + m collects exactly m ticks, so the
-        # three phases sum to its time in system
-        n_asg_post = _count_rows(Ws + 1, torch.where(
-            ws["assigned"] >= 0, ws["assigned"], Ws))[:, :Ws]
-        staffed = win["active"] & (n_asg_post > 0)
-        win["work_s"] = win["work_s"] + torch.where(staffed, cfg.dt, 0.0)
-        win["wait_s"] = win["wait_s"] + torch.where(
-            win["active"] & ~staffed, cfg.dt, 0.0)
+    with timing.span("tick.assign", dev):
+        avail = (ws["assigned"] < 0) & (ws["blocked_until"] <= t) \
+            & (ws["session_end"] > t)
+        n_asg = _count_rows(Ws + 1, torch.where(ws["assigned"] >= 0,
+                                                ws["assigned"], Ws))[:, :Ws]
+        want = target_outstanding(win["n_votes"], pol, cap=cap_eff)
+        if L.enabled:
+            # a model-known task requests only the crowd votes it still needs
+            # to clear the min_votes_known floor
+            want = torch.where(known, torch.minimum(want, torch.clamp(
+                L.min_votes_known - win["n_votes"], min=0)), want)
+        tier1 = win["active"] & (n_asg < want)
+        if cfg.straggler:
+            extra = torch.clamp(want, max=cfg.max_dup)
+            tier2 = win["active"] & (want > 0) & (n_asg >= want) \
+                & (n_asg < want + extra)
+        else:
+            tier2 = torch.zeros_like(tier1)
+        if R.enabled:
+            # FROG-style routing: workers x window slots scored from the online
+            # accuracy estimate (after this tick's crediting and churn) and the
+            # latency EWMA, task uncertainty from the FUSED posterior
+            shift = (_uniform_block(seed ^ 0xA5A5A5A5, step, 1)[:, 0]
+                     * Ws).to(torch.int64)
+            scores = route_scores(_acc_hat(cfg, ws), ws["lat_ewma"],
+                                  uncertainty(fused), R)
+            take, task_for_w, _, _ = scored_match(scores, avail, tier1, tier2,
+                                                  shift)
+        elif L.enabled and L.prioritize:
+            # votes go to the window tasks with the LOWEST fused confidence
+            # first: match in that permuted slot order and map back
+            unc = torch.where(win["active"], -confidence(fused), -INF)
+            perm = torch.argsort(-unc, dim=-1, stable=True)
+            take, task_p, _, _ = priority_match(
+                avail, torch.gather(tier1, 1, perm),
+                torch.gather(tier2, 1, perm),
+                torch.zeros((B,), dtype=torch.int64, device=dev))
+            task_for_w = torch.gather(perm, 1, task_p)
+        else:
+            shift = (_uniform_block(seed ^ 0xA5A5A5A5, step, 1)[:, 0]
+                     * Ws).to(torch.int64)
+            take, task_for_w, _, _ = priority_match(avail, tier1, tier2, shift)
+        lat_new = draw_latency(fast, ws["mu"], ws["sigma"], up[:, 6], up[:, 7])
+        ws["assigned"] = torch.where(take, task_for_w, ws["assigned"])
+        ws["busy_until"] = torch.where(take, t + lat_new, ws["busy_until"])
+        ws["start_t"] = torch.where(take, t, ws["start_t"])
+        ws["n_started"] = ws["n_started"] + take
+        waiting = avail & ~take
+        ws["cost_wait"] = ws["cost_wait"] \
+            + waiting.sum(-1) * cfg.dt * WAIT_PAY_PER_S
+        if tr_ph:
+            # this tick is work time for every still-active task staffed after
+            # the matching, window wait for the others; a task admitted at tick
+            # k and finalized at tick k + m collects exactly m ticks, so the
+            # three phases sum to its time in system
+            n_asg_post = _count_rows(Ws + 1, torch.where(
+                ws["assigned"] >= 0, ws["assigned"], Ws))[:, :Ws]
+            staffed = win["active"] & (n_asg_post > 0)
+            win["work_s"] = win["work_s"] + torch.where(staffed, cfg.dt, 0.0)
+            win["wait_s"] = win["wait_s"] + torch.where(
+                win["active"] & ~staffed, cfg.dt, 0.0)
 
     metrics = dict(
         hist=hist_d, done=done_d, correct=corr_d, sum_tis=tis_d,
@@ -1372,60 +1384,64 @@ def _run_one(cfg: StreamConfig, horizon: int, state: dict, warmup_t: float,
     psum = lambda ms, k: mesh.psum([m[k].reshape(N, Sl).sum(-1) for m in ms])
     t = np.float32(0.0)
     for step in range(horizon):
-        tf = float(t)
-        if arrivals is not None:
-            n_new, n_arr = inj_new[step], inj_arr[step]
-        else:
-            n_new, n_arr, arr_state = _tick_arrivals(cfg, arr_state, gen, tf,
-                                                     rate_scale)
-        over = over + torch.clamp(n_arr - M, min=0).sum(-1) \
-            + (n_new - torch.clamp(n_new, max=cap_total))
-        n_arr = torch.clamp(n_arr, max=M)
-        lp = _learner_tick_params(cfg, ls, Sl)
-        ms, trains = [], []
-        for g, grp in enumerate(groups):
-            d = mesh.devices[g]
-            ws, win, bl, m, train = _shard_tick(
-                cfg, grp["ws"], grp["banks"], grp["win"], grp["bl"],
-                n_arr[:, g * Sl:(g + 1) * Sl].reshape(-1).to(d), tf, step,
-                grp["seeds"], warmup_t, _to(lp, d), ov=ovs[g],
-                bank=banks[g])
-            grp.update(ws=ws, win=win, bl=bl)
-            ms.append(m)
-            trains.append(train)
-        if steal:
-            bls, gots, gaves = _steal_rebalance(
-                cfg, [grp["bl"] for grp in groups], mesh)
-            for grp, acc, b, got, gave in zip(groups, accs, bls, gots,
-                                              gaves):
-                grp["bl"] = b
-                acc["stolen"] = acc["stolen"] + got
-                acc["donated"] = acc["donated"] + gave
-        elif tr_pt:
-            gots = gaves = [torch.zeros_like(m["dropped"]) for m in ms]
-        if ls is not None:
-            ls = _learner_push_fit(cfg, ls, gather_rows(trains, mesh, N),
-                                   step)
-        for acc, m in zip(accs, ms):
-            for k in _ACCUM + (("ph", "ps") if tr_ph else ()):
-                acc[k] = acc[k] + m[k]
-        arrived = arrived + n_new
-        if tf >= warmup_t:
-            arrived_warm = arrived_warm + n_new
-        series["arrivals"][:, step] = n_new
-        series["finalized"][:, step] = psum(ms, "done_all")
-        series["backlog"][:, step] = psum(ms, "backlog")
-        series["in_flight"][:, step] = psum(ms, "in_flight")
-        if tr_pt:
-            # per-tick activity, summed over each replication's shards
-            tser[:, step] = mesh.psum([torch.stack(
-                [m["votes"], m["busy_workers"], m["idle_workers"],
-                 m["dropped"], got, gave], -1).reshape(N, Sl, -1).sum(1)
-                for m, got, gave in zip(ms, gots, gaves)])
-            if adm is not None:
-                adm[:, step] = gather_rows([m["adm_score"] for m in ms],
-                                           mesh, N).reshape(N, S).sum(-1) / S
-        t = np.float32(t + np.float32(cfg.dt))
+        with timing.span("tick", dev):
+            tf = float(t)
+            if arrivals is not None:
+                n_new, n_arr = inj_new[step], inj_arr[step]
+            else:
+                n_new, n_arr, arr_state = _tick_arrivals(
+                    cfg, arr_state, gen, tf, rate_scale)
+            over = over + torch.clamp(n_arr - M, min=0).sum(-1) \
+                + (n_new - torch.clamp(n_new, max=cap_total))
+            n_arr = torch.clamp(n_arr, max=M)
+            with timing.span("tick.learner_fit", dev):
+                lp = _learner_tick_params(cfg, ls, Sl)
+            ms, trains = [], []
+            for g, grp in enumerate(groups):
+                d = mesh.devices[g]
+                ws, win, bl, m, train = _shard_tick(
+                    cfg, grp["ws"], grp["banks"], grp["win"], grp["bl"],
+                    n_arr[:, g * Sl:(g + 1) * Sl].reshape(-1).to(d), tf, step,
+                    grp["seeds"], warmup_t, _to(lp, d), ov=ovs[g],
+                    bank=banks[g])
+                grp.update(ws=ws, win=win, bl=bl)
+                ms.append(m)
+                trains.append(train)
+            if steal:
+                bls, gots, gaves = _steal_rebalance(
+                    cfg, [grp["bl"] for grp in groups], mesh)
+                for grp, acc, b, got, gave in zip(groups, accs, bls, gots,
+                                                  gaves):
+                    grp["bl"] = b
+                    acc["stolen"] = acc["stolen"] + got
+                    acc["donated"] = acc["donated"] + gave
+            elif tr_pt:
+                gots = gaves = [torch.zeros_like(m["dropped"]) for m in ms]
+            if ls is not None:
+                with timing.span("tick.learner_fit", dev):
+                    ls = _learner_push_fit(
+                        cfg, ls, gather_rows(trains, mesh, N), step)
+            for acc, m in zip(accs, ms):
+                for k in _ACCUM + (("ph", "ps") if tr_ph else ()):
+                    acc[k] = acc[k] + m[k]
+            arrived = arrived + n_new
+            if tf >= warmup_t:
+                arrived_warm = arrived_warm + n_new
+            series["arrivals"][:, step] = n_new
+            series["finalized"][:, step] = psum(ms, "done_all")
+            series["backlog"][:, step] = psum(ms, "backlog")
+            series["in_flight"][:, step] = psum(ms, "in_flight")
+            if tr_pt:
+                # per-tick activity, summed over each replication's shards
+                tser[:, step] = mesh.psum([torch.stack(
+                    [m["votes"], m["busy_workers"], m["idle_workers"],
+                     m["dropped"], got, gave], -1).reshape(N, Sl, -1).sum(1)
+                    for m, got, gave in zip(ms, gots, gaves)])
+                if adm is not None:
+                    adm[:, step] = gather_rows(
+                        [m["adm_score"] for m in ms], mesh, N
+                    ).reshape(N, S).sum(-1) / S
+            t = np.float32(t + np.float32(cfg.dt))
     for grp, acc in zip(groups, accs):
         acc["cost_wait"] = grp["ws"]["cost_wait"]
         acc["cost_work"] = grp["ws"]["cost_work"]
@@ -1646,31 +1662,33 @@ def _run_points(cfg: StreamConfig, horizon: int, points: list, *,
     t_start = time.perf_counter()
     if draws is not None and len(draws) != V:
         raise ValueError(f"draws holds {len(draws)} points, expected {V}")
-    inits, arrivals = {}, {}
-    parts, news, arrs = [], [], []
-    for i, p in enumerate(points):
-        ik = (p.get("acc_a"), p.get("acc_b"))
-        ak = (p.get("rate_scale", 1.0), p.get("rate_abs"))
-        if draws is not None:
-            parts.append(draws[i][0])
-            n_new, n_arr = (torch.as_tensor(np.asarray(a, np.int64),
-                                            device=dev) for a in draws[i][1])
-        else:
-            if ik not in inits:
-                inits[ik] = draw_init(cfg, n_reps, seed, acc_a=ik[0],
-                                      acc_b=ik[1])
-            parts.append(inits[ik])
-            if ak not in arrivals:
-                arrivals[ak] = draw_arrivals(
-                    cfg, horizon, n_reps, seed=seed, rate_scale=ak[0],
-                    rate_abs=ak[1], device=dev)
-            n_new, n_arr = arrivals[ak]
-        news.append(n_new)
-        arrs.append(n_arr)
-    cat = lambda i: {k: np.concatenate([pt[i][k] for pt in parts])
-                     for k in parts[0][i]}
-    init = state_from_numpy(cfg, cat(0), cat(1),
-                            np.concatenate([pt[2] for pt in parts]), dev)
+    with timing.span("sweep.predraw"):
+        inits, arrivals = {}, {}
+        parts, news, arrs = [], [], []
+        for i, p in enumerate(points):
+            ik = (p.get("acc_a"), p.get("acc_b"))
+            ak = (p.get("rate_scale", 1.0), p.get("rate_abs"))
+            if draws is not None:
+                parts.append(draws[i][0])
+                n_new, n_arr = (
+                    torch.as_tensor(np.asarray(a, np.int64), device=dev)
+                    for a in draws[i][1])
+            else:
+                if ik not in inits:
+                    inits[ik] = draw_init(cfg, n_reps, seed, acc_a=ik[0],
+                                          acc_b=ik[1])
+                parts.append(inits[ik])
+                if ak not in arrivals:
+                    arrivals[ak] = draw_arrivals(
+                        cfg, horizon, n_reps, seed=seed, rate_scale=ak[0],
+                        rate_abs=ak[1], device=dev)
+                n_new, n_arr = arrivals[ak]
+            news.append(n_new)
+            arrs.append(n_arr)
+        cat = lambda i: {k: np.concatenate([pt[i][k] for pt in parts])
+                         for k in parts[0][i]}
+        init = state_from_numpy(cfg, cat(0), cat(1),
+                                np.concatenate([pt[2] for pt in parts]), dev)
     rows = n_reps * S
 
     def per_row(key, default, dtype):

@@ -31,6 +31,7 @@ import torch
 from repro_torch.distributed.sharding import P, Sharded, gather_copies, shard
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.params import PSpec
+from repro_torch.obs import timing
 
 _NEG = -1e30
 
@@ -302,30 +303,32 @@ def _moe_tokens(p, xf, cfg, C, round_weights):
     (``apply_moe``). Returns (out (T, d), probs (T, E) float32, topi)."""
     T, d = xf.shape
     E, k = cfg.n_experts, cfg.moe_top_k
-    probs = torch.softmax((xf @ p["router"]).to(torch.float32), dim=-1)
-    r = moe_dispatch(probs, k, C)
-    dest, keep, order = r["dest"], r["keep"], r["order"]
-    xe = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
-    xe = xe.index_put((dest,), xf[r["tok"]])
-    xe = xe[:-1].reshape(E, C, d)
+    with timing.span("moe.dispatch"):
+        probs = torch.softmax((xf @ p["router"]).to(torch.float32), dim=-1)
+        r = moe_dispatch(probs, k, C)
+        dest, keep, order = r["dest"], r["keep"], r["order"]
+        xe = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
+        xe = xe.index_put((dest,), xf[r["tok"]])
+        xe = xe[:-1].reshape(E, C, d)
     act = act_fn(cfg)
     h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     ye = torch.bmm(h, p["w_down"]).reshape(E * C, d)
-    w_slot = r["topw"].reshape(T * k)[order]
-    ys = torch.where(keep[:, None], ye[torch.clamp(dest, max=E * C - 1)],
-                     torch.zeros((), dtype=ye.dtype, device=ye.device))
-    if round_weights:
-        contrib = ys * w_slot.to(xf.dtype)[:, None]
-    else:
-        contrib = (ys * w_slot[:, None]).to(xf.dtype)    # slots, expert order
-    # each token's k slots, in the order the sorted slots visit them
-    pos = torch.empty_like(order)
-    pos[order] = torch.arange(T * k, device=xf.device)
-    pos = torch.sort(pos.reshape(T, k), dim=-1).values
-    parts = contrib[pos]                                 # (T, k, d)
-    out = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
-    for j in range(k):
-        out = out + parts[:, j]
+    with timing.span("moe.combine"):
+        w_slot = r["topw"].reshape(T * k)[order]
+        ys = torch.where(keep[:, None], ye[torch.clamp(dest, max=E * C - 1)],
+                         torch.zeros((), dtype=ye.dtype, device=ye.device))
+        if round_weights:
+            contrib = ys * w_slot.to(xf.dtype)[:, None]
+        else:
+            contrib = (ys * w_slot[:, None]).to(xf.dtype)  # expert order
+        # each token's k slots, in the order the sorted slots visit them
+        pos = torch.empty_like(order)
+        pos[order] = torch.arange(T * k, device=xf.device)
+        pos = torch.sort(pos.reshape(T, k), dim=-1).values
+        parts = contrib[pos]                             # (T, k, d)
+        out = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
+        for j in range(k):
+            out = out + parts[:, j]
     return out, probs, r["topi"]
 
 

@@ -6,10 +6,11 @@ The pieces:
 
   * ``trace``  — :class:`TraceConfig`, the trace switch the stream tick and
     the batch engine read, and :class:`EventsTrace`, the event loop's
-    host-side recorder (unused until the event loop is ported, ROADMAP
-    A9);
+    host-side recorder (``core/clamshell.py`` takes it);
   * ``timing`` — process-wide wall-clock registry (first call vs later
-    calls per named call site);
+    calls per named call site), and the spans inside the tick, the
+    sweep, the encoder and the MoE, on while a ``torch.profiler`` session
+    records;
   * ``export`` — versioned JSON-lines trace artifacts, the reference's
     schema (``python -m repro_torch.obs.export <scenario>``);
   * ``report`` — text dashboard over any trace artifact
