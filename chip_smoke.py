@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-times SRC
+    python3 chip_smoke.py --phase14
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main path on the card:
@@ -91,7 +92,13 @@ drives the port's main path on the card:
      on the sequential route and back; a reduced model
      on the card against the CPU; a crash, restore and continue at reduced
      size equal to a straight run;
- 14. the learner-aware stream tick at 256 replications: (a)
+ 14. the in-order sum kernels (``ordered_matmul``, ``segment_sum``) at the
+     stream cells' shapes (the fuse (65536, 32, 8) @ (65536, 8, 2), the
+     fit's logits (32768, 256, 8) @ (32768, 8, 2), its gradient's
+     transposed view (32768, 8, 256) @ (32768, 256, 2), a ``_row_sum``
+     level (32768, 256, 2) in 32s), bit for bit equal to their plain
+     versions on the card and the CPU, timed beside them and their bounds;
+     then the learner-aware stream tick at 256 replications: (a)
      ``skewed_learner_fused`` (the learner fused into the posterior,
      uncertainty-first routing) with the EM refresh for 240 ticks, (b)
      ``chance_hard`` (scored routing) with ``uncertain_learnable``
@@ -99,6 +106,8 @@ drives the port's main path on the card:
      shards, pressure stealing) and (d) the same at 20x its rate, where
      shards do steal, each for 120 ticks; each twice, bit for bit in every
      integer output, conservation exact, (a)'s 36 E-steps on the task route,
+     (a)'s in-order sums on the kernel (an ``ordered_matmul`` a tick and
+     two products and two ``_row_sum`` levels an Adam step of each fit),
      ``model_known > 0`` with the learner, as much stolen as donated, and
      the first 8 replications equal to a CPU run of the port on the same
      initial state and arrivals (else the first differing tick and state
@@ -275,15 +284,16 @@ With ``--launch-times SRC`` it only prints the per-call times of
 ``ds_estep`` at the refresh shape and of ``entropy_scores`` at the learning
 shapes through the package under SRC (another commit's ``src`` unpacked
 beside this one, say), to compare two launch paths in turns in one run.
-With ``--phase17`` it runs only the registry smoke and phase 17 (no kernel
-build: the LM stream launches none); with ``--phase18`` only the registry
-smoke, the build of ``ds_estep`` and ``entropy`` and phase 18; with
-``--phase19`` only the build of ``flash_attention`` and ``linear_scan`` and
-phase 19; with ``--phase20`` only the build of ``ds_estep`` and
-``entropy`` and phase 20; with ``--phase21`` only the build of
-``flash_attention`` (both sources) and ``xent`` and phase 21; with
-``--phase22`` only that build and phase 22; with
-``--mesh-gates`` only that build and phase 21's (a') and (b') for the
+With ``--phase14`` it runs only the build of ``ds_estep`` and
+``ordered_sum`` and phase 14; with ``--phase17`` only the registry smoke
+and phase 17 (no kernel build: the LM stream launches none); with
+``--phase18`` only the registry smoke, the build of ``ds_estep`` and
+``entropy`` and phase 18; with ``--phase19`` only the build of
+``flash_attention`` and ``linear_scan`` and phase 19; with ``--phase20``
+only the build of ``ds_estep`` and ``entropy`` and phase 20; with
+``--phase21`` only the build of ``flash_attention`` (both sources) and
+``xent`` and phase 21; with ``--phase22`` only that build and phase 22;
+with ``--mesh-gates`` only that build and phase 21's (a') and (b') for the
 seeds 22, 23 and 24 (the readings of the float32 gates, sound and
 planted, over seeds); with ``--lm-depth`` only the
 full-width xlstm-125m forward on the card against the CPU, group by group,
@@ -543,6 +553,73 @@ def scan_bwd_bound_ms(B, S, D, elt):
                                        else "operations"), nbytes
 
 
+def ordered_sum_bound_ms(n_in, n_out, n_products):
+    """Least time for an in-order float32 sum on an H100 SXM: ``n_in``
+    inputs read once and ``n_out`` sums written once at the memory rate, or
+    its ``n_products`` multiplies and adds at the float32 rate, whichever is
+    larger."""
+    nbytes = 4 * (n_in + n_out)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 2 * n_products / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def ordered_sum_kernels(card: str) -> dict:
+    """The in-order sum kernels (``kernels/ordered_sum.py``) on card tensors
+    at the stream cells' shapes (65536 shard rows, window 32, ring 256, F 8,
+    C 2): each call bit for bit equal to its plain version on the same
+    inputs on the card (the product tensor and ``segment_reduce``, the path
+    before the kernel) and on the CPU over the first 2048 rows; then its
+    time beside the plain version's and its bound."""
+    from repro_torch.kernels.ordered_sum import ordered_matmul, segment_sum
+    from repro_torch.kernels.ref import ordered_matmul_ref, segment_sum_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+
+    def wide(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * torch.exp(3 * torch.randn(shape, generator=gen,
+                                            device="cuda")))
+
+    X, Xf = wide(32768, 256, 8), wide(65536, 32, 8)
+    shapes = {
+        # name: (the wrapper's call, its plain version, the inputs)
+        "tick.fuse": (ordered_matmul, ordered_matmul_ref,
+                      (Xf, wide(65536, 8, 2))),
+        "fit logits": (ordered_matmul, ordered_matmul_ref,
+                       (X, wide(32768, 8, 2))),
+        "fit gradient": (ordered_matmul, ordered_matmul_ref,
+                         (X.transpose(-1, -2), wide(32768, 256, 2))),
+        "_row_sum level": (lambda g: segment_sum(g, 32),
+                           lambda g: segment_sum_ref(g, 32),
+                           (wide(32768, 256, 2),)),
+    }
+    res = {}
+    for name, (call, plain, args) in shapes.items():
+        tag = (f"[ordered_sum] {name} "
+               + " @ ".join(str(tuple(a.shape)) for a in args))
+        got, want = call(*args), plain(*args)
+        cpu = plain(*(a[:2048].cpu() for a in args))
+        check(got.shape == want.shape
+              and torch.equal(got.view(torch.int32), want.view(torch.int32))
+              and torch.equal(got[:2048].cpu().view(torch.int32),
+                              cpu.view(torch.int32)),
+              f"{tag}: the kernel's sums are not bit for bit the plain "
+              f"version's")
+        n_in = sum(a.numel() for a in args)
+        n_prod = (args[0].numel() * args[1].shape[-1] if len(args) == 2
+                  else args[0].numel())
+        res[name] = kernel_times(
+            tag, lambda: call(*args), lambda: plain(*args), None,
+            ordered_sum_bound_ms(n_in, got.numel(), n_prod), card, reps=50,
+            atol=0.0, rtol=0.0)
+        say(f"{tag}: bit for bit the plain version's on the card and the "
+            f"CPU's on the first 2048 rows")
+    return res
+
+
 def make_estep_inputs(gen, B, W, C, T, V, dev):
     R = W * C + 1
     shape_r = (R, C) if B is None else (B, R, C)
@@ -578,11 +655,13 @@ def stream_learner_phase(card: str):
     """Phase 14: the learner-aware stream tick on the card (see the module
     docstring); fails at the first check that does not hold."""
     from repro_torch.kernels.ds_estep import ds_estep
+    from repro_torch.kernels.ordered_sum import ordered_matmul, segment_sum
     from repro_torch.labelstream import router
     from repro_torch.labelstream.arrivals import ArrivalConfig
     from repro_torch.labelstream.routing import RoutingConfig
     from repro_torch.scenarios import get_stream_config
 
+    kern = ordered_sum_kernels(card)
     H, N, SEED, n8 = 1440, 256, 0, 8
     refresh = {"refresh_every": 40, "refresh_iters": 6}
     runs = [
@@ -611,6 +690,7 @@ def stream_learner_phase(card: str):
         tag = f"[learner-stream {label}]"
         n_refresh = h // cfg.refresh_every if cfg.refresh_every else 0
         ds_estep.launches = ds_estep.task_launches = 0
+        ordered_matmul.launches = segment_sum.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = router.run_stream(cfg, h, n_reps=N, seed=SEED, device="cuda")
@@ -620,6 +700,22 @@ def stream_learner_phase(card: str):
         check(launches == task == n_refresh * cfg.refresh_iters,
               f"{tag} made {launches} E-step launches ({task} on the task "
               f"route), expected {n_refresh * cfg.refresh_iters}")
+        o_mm, o_ss = ordered_matmul.launches, segment_sum.launches
+        say(f"{tag} ordered_sum launches: {o_mm} ordered_matmul, {o_ss} "
+            f"segment_sum")
+        if label == "a":
+            # the fuse each tick; each Adam step of a fit (every fit_every
+            # ticks from tick 0) two products and _row_sum's levels
+            L = cfg.learner
+            fits, n, levels = len(range(0, h, L.fit_every)), L.buffer, 1
+            while n >= 32:
+                n, levels = -(-n // 32), levels + 1
+            want = (h + 2 * fits * L.fit_steps, levels * fits * L.fit_steps)
+            check((o_mm, o_ss) == want, f"{tag} made {o_mm} ordered_matmul "
+                  f"and {o_ss} segment_sum launches, expected {want}")
+            for k in kern.values():
+                k["launches"] = o_mm
+            kern["_row_sum level"]["launches"] = o_ss
         total = lambda k: int(out[k].sum().item())
         lhs = total("arrived")
         rhs = (total("done_all") + total("backlog_end")
@@ -728,6 +824,7 @@ def stream_learner_phase(card: str):
         else:
             say(f"[profile] learner-stream {label}: device time not "
                 "measured (no device events)")
+    return kern
 
 
 def _outputs(out, prefix="") -> dict:
@@ -3082,6 +3179,18 @@ def mesh_gates(card: str, mesh, cpu_mesh, seed: int, B=4, S=256, P=512,
             "logits": rel, "logits_planted": served}
 
 
+def ordered_sum_line(kern: dict) -> list:
+    """Phase 14's in-order sum kernels as entries of the ``kernels`` line:
+    they replace no TPU kernel, and no library call computes them."""
+    names = {"tick.fuse": "ordered_matmul_fuse",
+             "fit logits": "ordered_matmul_logits",
+             "fit gradient": "ordered_matmul_grad",
+             "_row_sum level": "segment_sum_row_sum"}
+    return [{"name": names[k], "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ordered_sum.cu",
+             "replaces": None, **v} for k, v in kern.items()]
+
+
 def card_meshes():
     """Phase 21's 2 x 2 mesh, its slots on the first four cards where the
     machine has four, else all on ``cuda:0`` (said), and the same mesh on
@@ -3704,16 +3813,28 @@ def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--launch-times":
         launch_times(sys.argv[2])
         return
-    if len(sys.argv) == 2 and sys.argv[1] in ("--phase17", "--phase18",
-                                               "--phase19", "--phase20",
-                                               "--phase21", "--phase22",
-                                               "--lm-depth", "--mesh-gates"):
+    if len(sys.argv) == 2 and sys.argv[1] in ("--phase14", "--phase17",
+                                               "--phase18", "--phase19",
+                                               "--phase20", "--phase21",
+                                               "--phase22", "--lm-depth",
+                                               "--mesh-gates"):
         sys.path.insert(0, str(ROOT / "src"))
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
         say(card)
         if sys.argv[1] == "--lm-depth":
             lm_depth(card)
+            return
+        if sys.argv[1] == "--phase14":
+            from repro_torch.kernels import _build
+            t0 = time.perf_counter()
+            _build.build(("ds_estep", "ordered_sum"))
+            say(f"[build] ds_estep, ordered_sum "
+                f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            say(json.dumps({"kernels": ordered_sum_line(
+                stream_learner_phase(card))}))
+            say(f"[phase 14] done in {time.perf_counter() - t0:.1f} s")
             return
         if sys.argv[1] == "--phase20":
             from repro_torch.kernels import _build
@@ -5700,7 +5821,7 @@ def main():
     say(f"[phase 14] starts at {time.perf_counter() - t_smoke:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    stream_learner_phase(card)
+    os14 = stream_learner_phase(card)
 
     # ---- phase 15: the scenario front door and the live serve path ------
     say(f"[phase 15] starts at {time.perf_counter() - t_smoke:.1f} s")
@@ -5905,7 +6026,7 @@ def main():
         "name": "entropy_scores_sharded", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/entropy.cu",
         "replaces": "src/repro/kernels/uncertainty.py:55",
-        **sh20["entropy"]}] + mesh_kernels(mesh21)
+        **sh20["entropy"]}] + ordered_sum_line(os14) + mesh_kernels(mesh21)
         + dryrun_kernels(mesh21, dry22)}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind,

@@ -45,6 +45,25 @@ def margin_ref(logits):
     return top2[..., 0] - top2[..., 1]
 
 
+def ordered_matmul_ref(A, B):
+    """``A (..., n, k) @ B (..., k, m)``, each output the sum of its k
+    products added in index order by one sequential ``segment_reduce``: the
+    product tensor, then :func:`segment_sum_ref` over it. It holds all
+    n·k·m products at once."""
+    p = A[..., :, :, None] * B[..., None, :, :]
+    lead, k, m = p.shape[:-2], p.shape[-2], p.shape[-1]
+    return segment_sum_ref(p.reshape((-1, k, m)), k).reshape(lead + (m,))
+
+
+def segment_sum_ref(g, size: int):
+    """``(R, S*size, C)`` -> ``(R, S, C)``: each run of ``size`` rows summed
+    in index order from 0 by a sequential ``segment_reduce``."""
+    lengths = torch.full((g.shape[0], g.shape[1] // size), size,
+                         dtype=torch.int64, device=g.device)
+    return torch.segment_reduce(g, "sum", lengths=lengths, axis=1,
+                                unsafe=True)
+
+
 def attention_ref(q, k, v, *, causal=True, window=0):
     """Materialized GQA attention in float32. q: (B, Hq, Sq, D); k, v:
     (B, Hkv, Sk, D); q head h reads kv head h // (Hq // Hkv). Masks by

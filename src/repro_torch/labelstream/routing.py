@@ -22,7 +22,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.learning.linear import _segment_sum, ordered_matmul
+from repro_torch.kernels.ordered_sum import ordered_matmul, segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +41,7 @@ def _pool_sum(x):
     """Sum of ``(..., P)`` over the pool axis, one element after another: the
     order of the reference's CPU reduction, on the CPU and the card alike."""
     P = x.shape[-1]
-    return _segment_sum(x.reshape(-1, P, 1), P).reshape(x.shape[:-1])
+    return segment_sum(x.reshape(-1, P, 1), P).reshape(x.shape[:-1])
 
 
 def _standardize(x):

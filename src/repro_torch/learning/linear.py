@@ -24,7 +24,10 @@ Matrix products run in full float32, as the reference's: ``logits`` and
 the gradient's product run inside :func:`repro_torch.device.full_fp32`
 (no TF32). With ``ordered=True`` they go through :func:`ordered_matmul`
 instead, which rounds the same on the CPU and the card: the stream's
-learner, whose every product decides integers, takes that path.
+learner, whose every product decides integers, takes that path. It and the
+bias gradient's row sums (:func:`_row_sum`) run on the in-order sum kernel
+(:mod:`repro_torch.kernels.ordered_sum`) on the card and on its plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import full_fp32, resolve_device
+from repro_torch.kernels.ordered_sum import ordered_matmul, segment_sum
 from repro_torch.kernels.ref import entropy_ref
 from repro_torch.kernels.uncertainty import entropy_scores
 
@@ -98,17 +102,6 @@ def reset_opt(state: LinearLearner) -> LinearLearner:
     return with_params(state.W, state.b)
 
 
-def ordered_matmul(A, B) -> torch.Tensor:
-    """``A (..., n, k) @ B (..., k, m)``, each output the sum of its k
-    products added in index order by one sequential ``segment_reduce``: the
-    same rounding on the CPU and the card, for any batch size (cuBLAS picks
-    its order by shape). For small contractions; it holds all n·k·m
-    products at once."""
-    p = A[..., :, :, None] * B[..., None, :, :]
-    lead, k, m = p.shape[:-2], p.shape[-2], p.shape[-1]
-    return _segment_sum(p.reshape((-1, k, m)), k).reshape(lead + (m,))
-
-
 def _matmul(A, B, ordered: bool):
     if ordered:
         return ordered_matmul(A, B)
@@ -143,8 +136,8 @@ def _row_sum(g):
     takes: while 32 or more rows remain, zero-pad them to whole windows of
     32 (``pad // 2`` zeros in front, the rest behind: "same" padding) and
     replace them by the window sums, each window added in order; then add
-    what remains in order. Each level is one sequential
-    ``segment_reduce``, on the CPU and on the card alike."""
+    what remains in order. Each level is one :func:`segment_sum`, the same
+    bits on the CPU and on the card."""
     lead, C = g.shape[:-2], g.shape[-1]
     if g.shape[-2] == 0:
         return g.new_zeros(lead + (C,))
@@ -152,16 +145,10 @@ def _row_sum(g):
     while g.shape[1] >= 32:
         n = g.shape[1]
         pad = -(-n // 32) * 32 - n
-        g = torch.nn.functional.pad(g, (0, 0, pad // 2, pad - pad // 2))
-        g = _segment_sum(g, 32)
-    return _segment_sum(g, g.shape[1]).reshape(lead + (C,))
-
-
-def _segment_sum(g, size: int):
-    lengths = torch.full((g.shape[0], g.shape[1] // size), size,
-                         dtype=torch.int64, device=g.device)
-    return torch.segment_reduce(g, "sum", lengths=lengths, axis=1,
-                                unsafe=True)
+        if pad:
+            g = torch.nn.functional.pad(g, (0, 0, pad // 2, pad - pad // 2))
+        g = segment_sum(g, 32)
+    return segment_sum(g, g.shape[1]).reshape(lead + (C,))
 
 
 def _step(state: LinearLearner, X, onehot, ws, lr: float, l2: float,

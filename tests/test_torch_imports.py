@@ -68,10 +68,13 @@ def _modules(pkg: str) -> set:
 def test_the_port_mirrors_the_reference_module_for_module():
     """The port's module files are the reference's, save the one with no
     torch meaning (``launch/hlo_analysis.py`` parses XLA HLO text) and the
-    port's own additions: package ``__init__.py`` files, ``device.py``
-    and the kernel build module ``kernels/_build.py``."""
+    port's own additions: package ``__init__.py`` files, ``device.py``,
+    the kernel build module ``kernels/_build.py`` and the in-order sum
+    kernel's wrapper ``kernels/ordered_sum.py`` (it replaces no TPU kernel:
+    the reference leaves those sums to XLA)."""
     ref, port = _modules("repro"), _modules("repro_torch")
     inits = lambda mods: {m for m in mods if m.endswith("__init__.py")}
     assert ref - inits(ref) - {"launch/hlo_analysis.py"} == \
-        port - inits(port) - {"device.py", "kernels/_build.py"}
+        port - inits(port) - {"device.py", "kernels/_build.py",
+                              "kernels/ordered_sum.py"}
     assert "launch/dryrun.py" in port and "configs/xlstm_125m.py" in port

@@ -9,6 +9,7 @@ with the JAX package is in ``tests/test_torch_kernels.py``.
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,10 +18,13 @@ import repro_torch.kernels.linear_scan as kscan
 from repro_torch.kernels.ds_estep import ds_estep, estep_route, task_plan
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.linear_scan import linear_scan
+from repro_torch.kernels.ordered_sum import ordered_matmul, segment_sum
 from repro_torch.kernels.ref import (
     attention_bwd_ref, attention_ref, ds_estep_ref, entropy_ref,
-    linear_scan_ref, xent_bwd_ref, xent_ref,
+    linear_scan_ref, ordered_matmul_ref, segment_sum_ref, xent_bwd_ref,
+    xent_ref,
 )
+from repro_torch.learning import linear
 from repro_torch.kernels.uncertainty import entropy_scores
 from repro_torch.kernels.xent import streaming_xent
 
@@ -813,3 +817,200 @@ def test_lm_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     assert encoder.encode(ec, tokens, lengths, 8, device="cpu").shape == (2, 8)
     X, y, Xt, yt = bank.make_dataset(spec, 6, 2, device="cpu")
     assert X.shape == (6, 8) and Xt.shape == (2, 8)
+
+
+def _wide(shape, seed, dev):
+    """float32 values over ~20 binades of both signs, made on ``dev``, so
+    that a sum in another order or with an fma rounds differently."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev)
+            * torch.exp(3 * torch.randn(shape, generator=g, device=dev)))
+
+
+def _segment_reduce_matmul(A, B):
+    """The learner's product as the port computed it on the card before the
+    kernel: the product tensor, then one sequential ``segment_reduce``."""
+    p = A[..., :, :, None] * B[..., None, :, :]
+    lead, k, m = p.shape[:-2], p.shape[-2], p.shape[-1]
+    p = p.reshape((-1, k, m))
+    lengths = torch.full((p.shape[0], 1), k, dtype=torch.int64,
+                         device=p.device)
+    return torch.segment_reduce(p, "sum", lengths=lengths, axis=1,
+                                unsafe=True).reshape(lead + (m,))
+
+
+def _check_ordered(A, B, cpu_rows=None):
+    """The kernel's ``A @ B`` equal bit for bit to the segment_reduce path on
+    the card and to the plain version on the CPU (on the first
+    ``cpu_rows`` batch elements where given); one launch."""
+    before = ordered_matmul.launches
+    got = ordered_matmul(A, B)
+    torch.cuda.synchronize()
+    assert ordered_matmul.launches == before + (got.numel() > 0)
+    want = _segment_reduce_matmul(A, B)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    sl = slice(None) if cpu_rows is None else slice(0, cpu_rows)
+    a, b = A[sl].cpu(), B[sl].cpu()
+    np.testing.assert_array_equal(got[sl].cpu().numpy(),
+                                  ordered_matmul_ref(a, b).numpy())
+    return got
+
+
+# (A made as, A's shape after a transpose of its last two dims if True, B):
+# tick.fuse, the fit's logits, the fit's gradient (a transposed view),
+# ranked admission's backlog product, the learnability head
+ORDERED_CELL_SHAPES = [
+    ((65536, 32, 8), False, (65536, 8, 2)),
+    ((32768, 256, 8), False, (32768, 8, 2)),
+    ((32768, 256, 8), True, (32768, 256, 2)),
+    ((65536, 1024, 8), False, (65536, 8, 2)),
+    ((32768, 256, 16), False, (32768, 16, 2)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_shape,transposed,b_shape", ORDERED_CELL_SHAPES)
+def test_ordered_matmul_kernel_matches_plain_at_the_cells(a_shape,
+                                                          transposed,
+                                                          b_shape):
+    dev = _card()
+    A = _wide(a_shape, sum(a_shape), dev)
+    if transposed:
+        A = A.transpose(-1, -2)
+    B = _wide(b_shape, sum(b_shape) + 1, dev)
+    _check_ordered(A, B, cpu_rows=2048)
+
+
+# (A's shape, B's shape, how A is laid out): k = 1, k not a multiple of 4,
+# m = 1, m = 3 and 4, n = 0, leading and broadcast dims, a ring slice (the
+# fit's buf_X[:, :Bf]), one offset by a float (unaligned), a transposed view
+ORDERED_EDGES = [
+    ((64, 40, 1), (64, 1, 2), "plain"),
+    ((64, 40, 7), (64, 7, 2), "plain"),
+    ((64, 40, 12), (64, 12, 1), "plain"),
+    ((64, 9, 5), (64, 5, 3), "plain"),
+    ((64, 9, 8), (64, 8, 4), "plain"),
+    ((64, 0, 8), (64, 8, 2), "plain"),
+    ((2, 3, 50, 8), (2, 3, 8, 2), "plain"),
+    ((50, 8), (7, 8, 2), "plain"),
+    ((3, 50, 8), (1, 8, 2), "plain"),
+    ((512, 256, 8), (512, 8, 2), "ring"),
+    ((512, 256, 8), (512, 8, 2), "unaligned"),
+    ((512, 13, 37), (512, 37, 2), "transposed"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_shape,b_shape,layout", ORDERED_EDGES)
+def test_ordered_matmul_kernel_edge_shapes(a_shape, b_shape, layout):
+    dev = _card()
+    if layout == "ring":
+        A = _wide(a_shape[:1] + (300,) + a_shape[2:], 3, dev)[:, :256]
+    elif layout == "unaligned":
+        A = _wide((a_shape[0], 256 * 8 + 1), 4, dev)[:, 1:].reshape(a_shape)
+    elif layout == "transposed":
+        A = _wide(a_shape[:-2] + a_shape[-2:][::-1], 5, dev).transpose(-1, -2)
+    else:
+        A = _wide(a_shape, sum(a_shape), dev)
+    if layout != "plain":
+        assert not A.is_contiguous() or A.data_ptr() % 16
+    _check_ordered(A, _wide(b_shape, 7, dev))
+
+
+# order-sensitive values (a's row, against b's ones and minus ones)
+ORDER_VALUES = [
+    [1e8, 1.0, -1e8], [1.0, 1e8, -1e8, 1.0], [-0.0, -0.0, -0.0],
+    [-0.0, 0.0], [float("inf"), 1.0, 2.0], [float("inf"), float("-inf"), 1.0],
+    [1.0, float("nan"), 2.0], [1e-45, 1e-45, 3e38, -3e38],
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ORDER_VALUES)
+def test_ordered_sums_special_values_on_the_card(values):
+    dev = _card()
+    v = torch.tensor(values, dtype=torch.float32)
+    A = torch.stack([v, v.flip(0)])[None]                    # (1, 2, k)
+    B = torch.ones((1, v.numel(), 2))
+    B[0, :, 1] = -1.0
+    got = ordered_matmul(A.to(dev), B.to(dev)).cpu().numpy()
+    want = ordered_matmul_ref(A, B).numpy()
+    np.testing.assert_array_equal(got, want)
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(np.signbit(got[ok]), np.signbit(want[ok]))
+    g = A.transpose(-1, -2).contiguous()                     # (1, k, 2)
+    seg = segment_sum(g.to(dev), v.numel()).cpu().numpy()
+    seg_want = segment_sum_ref(g, v.numel()).numpy()
+    np.testing.assert_array_equal(seg, seg_want)
+    ok = ~np.isnan(seg_want)
+    np.testing.assert_array_equal(np.signbit(seg[ok]),
+                                  np.signbit(seg_want[ok]))
+
+
+# (R, n, C, size): _row_sum's two levels at the fit's (32768, 256, 2), the
+# pool sum's (rows, P, 1), C = 3 and 4, a strided g
+SEGMENT_SHAPES = [
+    (32768, 256, 2, 32, False), (32768, 8, 2, 8, False),
+    (65536, 8, 1, 8, False), (100, 96, 3, 32, False), (100, 64, 4, 16, False),
+    (100, 64, 2, 32, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,n,C,size,strided", SEGMENT_SHAPES)
+def test_segment_sum_kernel_matches_plain(R, n, C, size, strided):
+    dev = _card()
+    g = _wide((R, n, C + 1) if strided else (R, n, C), R + n + C, dev)
+    if strided:
+        g = g[..., 1:]
+    before = segment_sum.launches
+    got = segment_sum(g, size)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1
+    lengths = torch.full((R, n // size), size, dtype=torch.int64, device=dev)
+    card = torch.segment_reduce(g, "sum", lengths=lengths, axis=1,
+                                unsafe=True)
+    np.testing.assert_array_equal(got.cpu().numpy(), card.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  segment_sum_ref(g.cpu(), size).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 1, 31, 33, 1500])
+def test_row_sum_on_the_card_equals_the_cpu(n):
+    dev = _card()
+    g = _wide((4096, n, 2), n, dev)
+    np.testing.assert_array_equal(linear._row_sum(g).cpu().numpy(),
+                                  linear._row_sum(g.cpu()).numpy())
+
+
+@pytest.mark.cuda
+def test_ordered_sum_wrapper_rejects_bad_inputs():
+    dev = _card()
+    A, B = torch.zeros(2, 3, 4, device=dev), torch.zeros(2, 4, 2, device=dev)
+    bad = [
+        (TypeError, lambda: ordered_matmul(A.double(), B.double())),
+        (TypeError, lambda: ordered_matmul(A.to(torch.bfloat16), B)),
+        (ValueError, lambda: ordered_matmul(A, B.cpu())),
+        (ValueError, lambda: ordered_matmul(A, torch.zeros(2, 3, 2,
+                                                           device=dev))),
+        (ValueError, lambda: ordered_matmul(A, torch.zeros(3, 4, 2,
+                                                           device=dev))),
+        (ValueError, lambda: ordered_matmul(A, torch.zeros(2, 4, 0,
+                                                           device=dev))),
+        (TypeError, lambda: segment_sum(A.double(), 3)),
+        (ValueError, lambda: segment_sum(A, 2)),
+        (ValueError, lambda: segment_sum(A[0], 3)),
+    ]
+    counts = (ordered_matmul.launches, segment_sum.launches)
+    for err, call in bad:
+        with pytest.raises(err):
+            call()
+    assert (ordered_matmul.launches, segment_sum.launches) == counts
+    ordered_matmul(A, B)
+    ordered_matmul(A, B)
+    segment_sum(A, 3)
+    assert (ordered_matmul.launches, segment_sum.launches) == (
+        counts[0] + 2, counts[1] + 1)

@@ -32,6 +32,7 @@ from repro.learning import linear as jl  # noqa: E402
 from repro.learning import select as jsel  # noqa: E402
 from repro_torch.data import datasets as tdata  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ordered_sum as kos  # noqa: E402
 from repro_torch.kernels.ref import entropy_ref  # noqa: E402
 from repro_torch.kernels.uncertainty import entropy_scores  # noqa: E402
 from repro_torch.labelstream import arrivals as tarr  # noqa: E402
@@ -196,6 +197,158 @@ def test_row_sum_follows_the_reference_order():
              * np.exp(rng.normal(size=(3, n, 4)) * 3)).astype(np.float32)
         np.testing.assert_array_equal(tl._row_sum(torch.from_numpy(a)).numpy(),
                                       np.asarray(rs(jnp.asarray(a))))
+
+
+def _in_order(A, B):
+    """``A @ B`` in numpy float32, each output from 0 adding its products in
+    index order, each product and add rounded on its own."""
+    A, B = np.broadcast_arrays(A[..., :, :, None], B[..., None, :, :])
+    out = np.zeros(A.shape[:-3] + (A.shape[-3], A.shape[-1]), np.float32)
+    with np.errstate(all="ignore"):
+        for t in range(A.shape[-2]):
+            out = out + A[..., t, :] * B[..., t, :]
+    return out
+
+
+def _segment_reduce_matmul(A, B):
+    """The learner's product as the port computed it before the kernel: the
+    product tensor, then one sequential ``segment_reduce`` over its k."""
+    p = A[..., :, :, None] * B[..., None, :, :]
+    lead, k, m = p.shape[:-2], p.shape[-2], p.shape[-1]
+    p = p.reshape((-1, k, m))
+    lengths = torch.full((p.shape[0], 1), k, dtype=torch.int64)
+    return torch.segment_reduce(p, "sum", lengths=lengths, axis=1,
+                                unsafe=True).reshape(lead + (m,))
+
+
+def _wide(rng, shape):
+    return (rng.normal(size=shape) * np.exp(rng.normal(size=shape) * 3)
+            ).astype(np.float32)
+
+
+# (A's shape, B's shape, A transposed from its last two dims): the stream
+# cells' shapes cut down, the gradient's transposed view, k = 1, k not a
+# multiple of 4, m = 1 and 3, n = 0, leading and broadcast dims
+ORDERED_CASES = [
+    ((4, 32, 8), (4, 8, 2), False),
+    ((3, 256, 8), (3, 8, 2), False),
+    ((3, 8, 256), (3, 256, 2), True),
+    ((5, 1024, 8), (5, 8, 2), False),
+    ((6, 40, 1), (6, 1, 2), False),
+    ((6, 40, 7), (6, 7, 2), False),
+    ((6, 40, 16), (6, 16, 1), False),
+    ((6, 9, 5), (6, 5, 3), False),
+    ((4, 0, 8), (4, 8, 2), False),
+    ((2, 3, 5, 4), (2, 3, 4, 2), False),
+    ((5, 4), (3, 4, 2), False),
+]
+
+
+@pytest.mark.parametrize("a_shape,b_shape,transposed", ORDERED_CASES)
+def test_ordered_matmul_cpu_route_equals_segment_reduce(a_shape, b_shape,
+                                                        transposed):
+    rng = np.random.default_rng(sum(a_shape) + 7 * sum(b_shape))
+    a = _wide(rng, a_shape[:-2] + a_shape[-2:][::-1] if transposed
+              else a_shape)
+    B = torch.from_numpy(_wide(rng, b_shape))
+    A = torch.from_numpy(a)
+    if transposed:
+        A = A.transpose(-1, -2)
+        assert not A.is_contiguous()
+    before = kos.ordered_matmul.launches
+    got = kos.ordered_matmul(A, B)
+    assert kos.ordered_matmul.launches == before     # CPU: no launch
+    assert got.dtype == torch.float32
+    assert torch.equal(got, _segment_reduce_matmul(A, B))
+    np.testing.assert_array_equal(got.numpy(), _in_order(A.numpy(),
+                                                         B.numpy()))
+    assert torch.equal(tl.ordered_matmul(A, B), got)
+
+
+# a's values against b's ones: each case's in-order sum differs from a
+# pairwise or reversed one, or needs IEEE's rules for zeros, inf and NaN
+ORDER_VALUES = {
+    "cancel": [1e8, 1.0, -1e8],
+    "cancel_late": [1.0, 1e8, -1e8, 1.0],
+    "signed_zeros": [-0.0, -0.0, -0.0],
+    "neg_zero_then_zero": [-0.0, 0.0],
+    "inf": [np.inf, 1.0, 2.0],
+    "inf_minus_inf": [np.inf, -np.inf, 1.0],
+    "nan": [1.0, np.nan, 2.0],
+    "tiny": [1e-45, 1e-45, 3e38, -3e38],
+}
+
+
+@pytest.mark.parametrize("case", list(ORDER_VALUES))
+def test_ordered_sums_follow_index_order_on_special_values(case):
+    v = np.asarray(ORDER_VALUES[case], np.float32)
+    k = v.size
+    A = torch.from_numpy(np.stack([v, v[::-1].copy()])[None])  # (1, 2, k)
+    B = torch.ones((1, k, 2))
+    B[0, :, 1] = -1.0
+    got = kos.ordered_matmul(A, B)
+    want = _in_order(A.numpy(), B.numpy())
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _segment_reduce_matmul(A, B).numpy())
+    np.testing.assert_array_equal(np.signbit(got.numpy()),
+                                  np.signbit(want))
+    g = A.transpose(-1, -2).contiguous()                   # (1, k, 2)
+    seg, seg_want = kos.segment_sum(g, k), np.zeros((1, 1, 2), np.float32)
+    with np.errstate(all="ignore"):
+        for t in range(k):
+            seg_want = seg_want + g.numpy()[:, t:t + 1]
+    np.testing.assert_array_equal(seg.numpy(), seg_want)
+    np.testing.assert_array_equal(np.signbit(seg.numpy()),
+                                  np.signbit(seg_want))
+    if case == "cancel":
+        assert got[0, 0, 0].item() == 0.0 and v.sum(dtype=np.float64) == 1.0
+    if case == "signed_zeros":
+        assert not np.signbit(got.numpy()).any()      # 0 + -0 is +0
+
+
+@pytest.mark.parametrize("R,n,C,size", [
+    (4, 256, 2, 32), (4, 8, 2, 8), (3, 96, 4, 32), (5, 7, 1, 7),
+    (2, 30, 3, 5), (0, 64, 2, 32), (3, 0, 2, 4)])
+def test_segment_sum_cpu_route_equals_segment_reduce(R, n, C, size):
+    rng = np.random.default_rng(R * 1000 + n * 10 + C)
+    g = torch.from_numpy(_wide(rng, (R, n, C)))
+    before = kos.segment_sum.launches
+    got = kos.segment_sum(g, size)
+    assert kos.segment_sum.launches == before
+    assert got.shape == (R, n // size, C)
+    lengths = torch.full((R, n // size), size, dtype=torch.int64)
+    assert torch.equal(got, torch.segment_reduce(g, "sum", lengths=lengths,
+                                                 axis=1, unsafe=True))
+    runs = g.numpy().reshape(R, n // size, size, C)
+    want = np.zeros((R, n // size, C), np.float32)
+    for t in range(size):
+        want = want + runs[:, :, t]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ordered_sum_wrapper_refuses_bad_inputs():
+    A, B = torch.zeros(2, 3, 4), torch.zeros(2, 4, 2)
+    bad = [
+        (TypeError, lambda: kos.ordered_matmul(A.double(), B.double())),
+        (TypeError, lambda: kos.ordered_matmul(A, B.to(torch.bfloat16))),
+        (ValueError, lambda: kos.ordered_matmul(A[0, 0], B)),
+        (ValueError, lambda: kos.ordered_matmul(A, torch.zeros(2, 3, 2))),
+        (ValueError, lambda: kos.ordered_matmul(torch.zeros(2, 3, 0),
+                                                torch.zeros(2, 0, 2))),
+        (ValueError, lambda: kos.ordered_matmul(A, torch.zeros(2, 4, 0))),
+        (ValueError, lambda: kos.ordered_matmul(A, torch.zeros(3, 4, 2))),
+        (ValueError, lambda: kos.ordered_matmul(A.to("meta"), B.to("meta"))),
+        (TypeError, lambda: kos.segment_sum(A.double(), 3)),
+        (ValueError, lambda: kos.segment_sum(A[0], 3)),
+        (ValueError, lambda: kos.segment_sum(A, 2)),
+        (ValueError, lambda: kos.segment_sum(A, 0)),
+    ]
+    counts = (kos.ordered_matmul.launches, kos.segment_sum.launches)
+    for err, call in bad:
+        with pytest.raises(err):
+            call()
+    assert (kos.ordered_matmul.launches, kos.segment_sum.launches) == counts
 
 
 def test_fit_batched_matches_per_replication():
